@@ -1,19 +1,19 @@
 """GCM-mode driver: large mixed clear/cloudy column batches with
-aerosols, sharded over every visible chip, with double-buffered
+aerosols, sharded over every visible device, with double-buffered
 host->device streaming.
 
 This is the production shape of the reference's GCM entry point
 (rrtmg_lw_rad.f90:99 `rrtmg_lw`, called per column block from a host
 model): here one jit-compiled step radiates the whole sharded batch
-and the input pipeline keeps `--depth` batches in flight so the chips
-never wait on PCIe/DCN.
+and the input pipeline keeps `--depth` batches in flight so the cards
+never wait on PCIe.
 
 Run (any backend; a virtual CPU mesh works for a smoke test):
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/gcm_step.py --ncol 4096 --steps 10 --cpu
 
-    python examples/gcm_step.py --ncol 1048576 --steps 20   # TPU pod
+    python examples/gcm_step.py --ncol 65536 --steps 20   # four GPUs
 """
 
 from __future__ import annotations
@@ -57,13 +57,10 @@ def main():
     print(f"mesh: {len(devices)} x {devices[0].platform}")
 
     # Mixed population, one compiled program: clear columns carry a
-    # zero cloud mask (the kernel's cloud gate skips their cloudy
-    # stream), aerosols ride the per-band taua input.
+    # zero cloud mask, aerosols ride the per-band taua input.
     model = make_model(LWConfig(icld=2, imca=1, iaer=10,
                                 dtype="float32", use_lut=False))
     step = par.make_sharded_step(model, mesh)
-
-    layout = "compact" if devices[0].platform == "tpu" else "batch"
 
     def host_batches(n):
         for i in range(n):
@@ -71,8 +68,7 @@ def main():
                                   dtype=jnp.float32, seed=i, aod=0.3)
             clouds = make_mcica_clouds(
                 ncol=args.ncol, nlay=args.nlay, dtype=jnp.float32,
-                layout=layout, seed=i,
-                mask_dtype=np.int8 if layout == "compact" else None,
+                layout="compact", seed=i, mask_dtype=np.int8,
                 clear_frac=1.0 - args.cloud_frac)
             yield atm, clouds
 

@@ -44,9 +44,9 @@ def main():
     from rrtmg_lw_tpu import LWConfig, make_model
     from rrtmg_lw_tpu.utils.synthetic import make_atmosphere
 
-    dtype = "float32" if jax.default_backend() == "tpu" else "float64"
-    if dtype == "float64":
-        jax.config.update("jax_enable_x64", True)
+    # the reference's own f64 precision (the GPU has FP64 units)
+    dtype = "float64"
+    jax.config.update("jax_enable_x64", True)
     model = make_model(LWConfig(icld=0, idrv=1, use_lut=False,
                                 dtype=dtype))
     atm = make_atmosphere(ncol=args.ncol, nlay=args.nlay,

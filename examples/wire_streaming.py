@@ -1,9 +1,8 @@
 """Production streaming with the compressed wire format.
 
-The interconnect, not the chip, bounds sustained columns/s in a
-streaming deployment (STREAM_r04: the device computes ~1.3M cols/s,
-a thin host link feeds a few tens of thousands).  This example shows
-the TPU-native dataflow for that regime:
+In a streaming deployment the host link, not the device, can bound
+sustained columns/s.  This example shows the device-side dataflow for
+that regime:
 
   host thread:  generate / load (B, L) profile + cloud fields
                 -> wire-encode (uint16 codes + per-batch reference
@@ -21,7 +20,7 @@ Run (any backend; virtual CPU mesh works):
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/wire_streaming.py --ncol 2048 --steps 6 --cpu
 
-    python examples/wire_streaming.py --ncol 16384 --steps 64   # TPU
+    python examples/wire_streaming.py --ncol 16384 --steps 64   # GPU
 """
 
 from __future__ import annotations

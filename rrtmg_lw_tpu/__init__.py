@@ -1,6 +1,6 @@
-"""rrtmg_lw_tpu — a TPU-native longwave radiative transfer framework.
+"""rrtmg_lw_tpu — a batched longwave radiative transfer framework.
 
-Brand-new JAX/XLA/Pallas implementation with the capabilities of
+Brand-new JAX/XLA implementation with the capabilities of
 AER-RC/RRTMG_LW (correlated k-distribution, 16 bands / 140 g-points,
 McICA): batched over columns, sharded over device meshes, jit-compiled.
 """

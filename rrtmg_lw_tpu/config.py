@@ -34,19 +34,14 @@ class LWConfig:
     istart: int = 1        # first band
     iend: int = 16         # last band
     use_lut: bool = True   # exp/tfn via 10k-entry tables (reference parity)
-                           # False -> closed-form exp (faster on TPU)
-    taumol_impl: str = "auto"  # 'xla' | 'pallas' | 'auto' (pallas on TPU
-                               # when dtype is float32)
-    rt_impl: str = "auto"      # radiative-transfer sweep backend, same
-                               # scheme; pallas requires use_lut=False
-    pallas_interpret: bool = False  # run the Pallas kernels in
-                               # interpret mode (CPU emulation): lets
-                               # the kernel paths — incl. under a
-                               # virtual shard_map mesh — execute
-                               # without TPU hardware.  Set taumol_impl
-                               # / rt_impl to 'pallas' explicitly with
-                               # this ('auto' still resolves to xla off
-                               # TPU).
+                           # False -> closed-form exp
+    rt_impl: str = "auto"  # RT sweep: 'xla' (lax.scan) | 'pallas' (the
+                           # fused Triton sweep, rtrn_pallas.py) |
+                           # 'auto' (pallas on a GPU when the config
+                           # is one the kernel covers)
+    pallas_interpret: bool = False  # run rt_impl='pallas' in the Pallas
+                           # interpreter (CPU tests); without it an
+                           # explicit 'pallas' off a GPU raises
     dtype: str = "float64" # compute dtype for the column physics
     cpdair: float = 1.004e3
 

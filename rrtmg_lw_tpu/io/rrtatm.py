@@ -1,6 +1,6 @@
 """RRTATM — the column-mode atmosphere builder (IATM=1).
 
-TPU-framework host-side reimplementation of the LBLATM-derived
+Host-side reimplementation of the LBLATM-derived
 atmosphere processor the reference ships as ``src/rrtatm.f`` (7939 lines
 of fixed-form F77).  Given LBLRTM-style records 3.1-3.6 it builds the
 layered atmosphere (level pressures/temperatures, layer means, absolute

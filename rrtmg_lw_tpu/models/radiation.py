@@ -1,6 +1,6 @@
 """The flagship model: batched longwave radiative transfer.
 
-TPU-native equivalent of the reference GCM entry point ``rrtmg_lw``
+Batched equivalent of the reference GCM entry point ``rrtmg_lw``
 (rrtmg_lw_rad.f90:99-595, McICA) and ``rrtmg_lw_rad.nomcica.f90`` (the
 deterministic rtrn/rtrnmr paths).  The reference's serial
 ``do iplon = 1, ncol`` column loop (rrtmg_lw_rad.f90:486) becomes a
@@ -38,6 +38,28 @@ from ..types import (Atmosphere, BandClouds, Fluxes, McicaClouds,
 _UNSET = object()
 
 
+def _resolve_rt_impl(config: LWConfig) -> bool:
+    """True when the RT sweep runs the Pallas kernel.  'auto' takes it
+    on a GPU for the configs it covers (f32, closed-form exp); an
+    explicit 'pallas' outside those, or off a GPU without the
+    interpreter, raises instead of quietly running something else."""
+    covered = config.jdtype == jnp.float32 and not config.use_lut
+    on_gpu = jax.default_backend() == "gpu"
+    if config.rt_impl == "auto":
+        return covered and on_gpu
+    if config.rt_impl == "xla":
+        return False
+    if config.rt_impl != "pallas":
+        raise ValueError(f"rt_impl={config.rt_impl!r}")
+    if not covered:
+        raise ValueError("rt_impl='pallas' covers float32 with "
+                         "use_lut=False only")
+    if not (on_gpu or config.pallas_interpret):
+        raise ValueError("rt_impl='pallas' needs a GPU backend or "
+                         "pallas_interpret=True")
+    return True
+
+
 class RRTMGLW:
     """Holds the static k-tables / lookup tables and exposes jittable
     flux computations."""
@@ -53,20 +75,7 @@ class RRTMGLW:
             self.is_real_kdata = True
         self.ktables = ktables
         self.engine = TaumolEngine(ktables, self.static_np, dtype=dtype)
-        impl = config.taumol_impl
-        if impl == "auto":
-            impl = ("pallas" if (jax.default_backend() == "tpu"
-                                 and dtype == jnp.float32) else "xla")
-        if impl == "pallas":
-            from ..ops.taumol_pallas import PallasTaumol
-            self.engine = PallasTaumol(ktables, self.static_np,
-                                       interpret=config.pallas_interpret)
-        rt_impl = config.rt_impl
-        if rt_impl == "auto":
-            rt_impl = ("pallas" if (jax.default_backend() == "tpu"
-                                    and dtype == jnp.float32
-                                    and not config.use_lut) else "xla")
-        self.rt_pallas = rt_impl == "pallas"
+        self.rt_pallas = _resolve_rt_impl(config)
         luts_np = build_lookup_tables()
         self.luts = {
             "tau_tbl": jnp.asarray(luts_np.tau_tbl, dtype),
@@ -128,107 +137,34 @@ class RRTMGLW:
         B, L = prof.pavel.shape
 
         gsel = self._gselect()
-        # native path: taug/fracs stay in the taumol kernel's (G, L, B)
-        # layout and flow straight into the RT kernel (aerosol folded in
-        # there) — no (B, L, G) relayout passes in between.  rtrnmr
-        # (deterministic max-random) has its own Pallas sweep when the
-        # VMEM budget holds; otherwise it consumes (B, L, G) via the
-        # XLA scan.
-        uses_rtmr = (clouds is not None and cfg.imca != 1
-                     and cfg.icld >= 2)
-        rtmr_pallas = False
-        if uses_rtmr and self.rt_pallas:
-            from ..ops import rtrn_pallas as _rtp
-            rtmr_pallas = _rtp.maxrand_supported(
-                L, len(gsel), tile=_rtp.resolve_tile(B),
-                idrv=cfg.idrv)
-        blocked_ok = (len(gsel) == 140
-                      and spec_constraint is None
-                      and hasattr(self.engine, "supports_blocked")
-                      and self.engine.supports_blocked(B, L))
-        # The Pallas rtrnmr sweep only exists in the blocked layout, so
-        # rtmr may go native only when blocked is available too — else
-        # native-layout taut would reach the XLA rt_maxrandom, which
-        # consumes (B, L, G).
-        native = (self.rt_pallas and hasattr(self.engine, "forward_native")
-                  and (not uses_rtmr or (rtmr_pallas and blocked_ok)))
-        # blocked: taumol emits the RT kernel's padded (L, G_pad, B)
-        # block layout directly — zero relayout between the two kernels
-        blocked = native and blocked_ok
-        planck_b = False
-        planck_args = None
-        win_ok = None
-        if blocked:
-            sc = setcoef(prof, self.static, istart=cfg.istart,
-                         idrv=cfg.idrv)
-            taut, fracs = self.engine.forward_blocked(sc, prof)
-            if hasattr(self.engine, "window_ok"):
-                win_ok = self.engine.window_ok(sc)
-            # Planck sources straight to the RT kernel's (L, 16, B)
-            # layout via the VMEM-tiled Pallas interp; setcoef's
-            # HBM-materialized one-hot planklay/planklev then dead-code
-            # eliminate under jit (plankbnd/dplankbnd stay XLA).
-            if B % 128 == 0:
-                from ..ops.planck_pallas import planck_interp_blocked
-                ptile = max(t for t in (2048, 1024, 512, 256, 128)
-                            if B % t == 0)
-                totplnk = self.static["totplnk"]
-                planck_args = (
-                    planck_interp_blocked(prof.tavel.T, totplnk,
-                                          tile=ptile,
-                                          interpret=cfg.pallas_interpret),
-                    planck_interp_blocked(prof.tz.T, totplnk,
-                                          tile=ptile,
-                                          interpret=cfg.pallas_interpret))
-                planck_b = True
-        elif native:
-            sc = setcoef(prof, self.static, istart=cfg.istart,
-                         idrv=cfg.idrv)
-            taut, fracs = self.engine.forward_native(sc, prof)
-            if len(gsel) != taut.shape[0]:
-                taut = taut[gsel]
-                fracs = fracs[gsel]
-            if spec_constraint is not None:
-                from jax.sharding import NamedSharding, PartitionSpec
-                from ..parallel.mesh import COLUMNS, SPEC
-                nat = NamedSharding(spec_constraint.mesh,
-                                    PartitionSpec(SPEC, None, COLUMNS))
-                taut = jax.lax.with_sharding_constraint(taut, nat)
-                fracs = jax.lax.with_sharding_constraint(fracs, nat)
-        else:
-            sc, taut, fracs = self.optical_depth(prof, istart=cfg.istart)
-            if spec_constraint is not None:
-                taut = jax.lax.with_sharding_constraint(
-                    taut, spec_constraint)
-                fracs = jax.lax.with_sharding_constraint(
-                    fracs, spec_constraint)
-            if len(gsel) != taut.shape[-1]:
-                taut = taut[..., gsel]
-                fracs = fracs[..., gsel]
+        sc, taut, fracs = self.optical_depth(prof, istart=cfg.istart)
+        if spec_constraint is not None:
+            taut = jax.lax.with_sharding_constraint(taut, spec_constraint)
+            fracs = jax.lax.with_sharding_constraint(fracs,
+                                                     spec_constraint)
+        if len(gsel) != taut.shape[-1]:
+            taut = taut[..., gsel]
+            fracs = fracs[..., gsel]
+        # GSPMD cannot split a pallas_call along g, so a spectral
+        # partition keeps the XLA sweep
+        use_kernel = self.rt_pallas and spec_constraint is None
 
-        def run_rt(cldf_g, odcld_g, cloudy, thresh,
-                   clouds_blocked=False, cloud_fields=None,
-                   odcld_weighted=False):
-            if self.rt_pallas:
+        def run_rt(cldf_g, odcld_g, cloudy, thresh, odcld_weighted=False):
+            if use_kernel:
                 from ..ops import rtrn_pallas as rtp
-                play, plev = (planck_args if planck_b
-                              else (sc.planklay, sc.planklev))
                 return rtp.rt_random_overlap_pallas(
-                    taut, fracs, play, plev, sc.plankbnd,
+                    taut, fracs, sc.planklay, sc.planklev, sc.plankbnd,
                     sc.dplankbnd_dt, prof.semiss, prof.pwvcm, prof.pz,
-                    cldf_g, odcld_g,
-                    taua=prof.taua if native else None,
-                    cloudy=cloudy, gate_thresh=thresh,
+                    cldf_g, odcld_g, cloudy=cloudy, gate_thresh=thresh,
                     static=self.static_np, idrv=cfg.idrv,
                     heatfac_val=self.heatfac, istart=cfg.istart,
-                    iend=cfg.iend,
-                    native="blocked" if blocked else native,
-                    clouds_blocked=clouds_blocked,
-                    planck_blocked=planck_b,
-                    cloud_fields=cloud_fields,
+                    iend=cfg.iend, odcld_weighted=odcld_weighted,
                     interpret=cfg.pallas_interpret)
-            gate = (cldf_g >= thresh) if cloudy \
-                else jnp.zeros(taut.shape, bool)
+            if cloudy:
+                gate = cldf_g >= thresh
+            else:
+                cldf_g = odcld_g = jnp.zeros(taut.shape, dtype)
+                gate = jnp.zeros(taut.shape, bool)
             return rt.rt_random_overlap(
                 taut, fracs, sc.planklay, sc.planklev, sc.plankbnd,
                 sc.dplankbnd_dt, prof.semiss, prof.pwvcm, prof.pz,
@@ -241,146 +177,53 @@ class RRTMGLW:
 
         bounds_ok = None
         if cfg.icld == 0 or clouds is None:
-            zero_g = jnp.zeros((B, L, len(gsel)), dtype)
-            out = run_rt(zero_g, zero_g, False, 2.0)
+            out = run_rt(None, None, False, 2.0)
         elif cfg.imca == 1:
             assert isinstance(clouds, (McicaClouds, McicaCloudsBlocked,
                                        McicaCloudsCompact))
-            if isinstance(clouds, McicaCloudsCompact) and not (
-                    blocked and cfg.inflag == 2):
-                clouds = clouds.to_blocked()
-            if isinstance(clouds, McicaCloudsBlocked) and not blocked:
+            if not isinstance(clouds, McicaClouds):
                 clouds = clouds.to_batch()
+            taucmc, bounds_ok = cld_ops.cldprmc(
+                clouds, self.static_np, inflag=cfg.inflag,
+                iceflag=cfg.iceflag, liqflag=cfg.liqflag)
             # cldfmc is binary (0/1): >= 0.5 reproduces the reference's
             # cldfmc == 1 gate (rtrnmc.f90:317)
-            if (blocked and isinstance(clouds, McicaCloudsCompact)):
-                # generator-form clouds: mask + per-layer water paths
-                # stream into the kernel; per-g products never touch
-                # HBM (1/4 the cloud traffic of the blocked layout)
-                abi_t, abl_t, bounds_ok = \
-                    cld_ops.cloud_optics_bands_blocked(
-                        clouds, self.static_np, iceflag=cfg.iceflag,
-                        liqflag=cfg.liqflag,
-                        interpret=cfg.pallas_interpret)
-                cw_t = jnp.pad(
-                    jnp.stack([clouds.ciwp.T, clouds.clwp.T], axis=1),
-                    ((0, 0), (0, 6), (0, 0))).astype(dtype)
-                out = run_rt(None, None, True, 0.5, cloud_fields=(
-                    clouds.cldfmc, cw_t, abi_t, abl_t))
-            elif (blocked and isinstance(clouds, McicaCloudsBlocked)
-                    and cfg.inflag == 2):
-                # fully fused: raw blocked cloud arrays stream straight
-                # into the RT kernel, which runs cldprmc internally —
-                # zero XLA passes over the per-g cloud data
-                abi_t, abl_t, bounds_ok = \
-                    cld_ops.cloud_optics_bands_blocked(
-                        clouds, self.static_np, iceflag=cfg.iceflag,
-                        liqflag=cfg.liqflag,
-                        interpret=cfg.pallas_interpret)
-                out = run_rt(None, None, True, 0.5, cloud_fields=(
-                    clouds.cldfmc, clouds.ciwpmc, clouds.clwpmc,
-                    clouds.taucmc, abi_t, abl_t))
-            elif blocked:
-                # optics arithmetic fused into the one relayout pass
-                odcld_t, cldf_t, bounds_ok = cld_ops.cldprmc_blocked(
-                    clouds, self.static_np, inflag=cfg.inflag,
-                    iceflag=cfg.iceflag, liqflag=cfg.liqflag)
-                out = run_rt(cldf_t, odcld_t, True, 0.5,
-                             clouds_blocked=True)
-            else:
-                taucmc, bounds_ok = cld_ops.cldprmc(
-                    clouds, self.static_np, inflag=cfg.inflag,
-                    iceflag=cfg.iceflag, liqflag=cfg.liqflag)
-                cldf_g = clouds.cldfmc[..., gsel]
-                odcld_g = taucmc[..., gsel]
-                out = run_rt(cldf_g, odcld_g, True, 0.5)
+            out = run_rt(clouds.cldfmc[..., gsel], taucmc[..., gsel],
+                         True, 0.5)
         else:
             assert isinstance(clouds, BandClouds)
-            taucb_dyn = taucb_dyn_w = None
-            if not cld_ops.cloud_bands_static(cfg.inflag, cfg.iceflag,
-                                              cfg.liqflag):
+            weighted = not cld_ops.cloud_bands_static(
+                cfg.inflag, cfg.iceflag, cfg.liqflag)
+            if weighted:
                 # reference runtime-ncbands configs (iceflag 0/1 or
                 # liqflag 0): cloud-band taucloud + the ipat/secdiff
-                # cloud-band aliasing expanded to spectral bands.
-                # Consumers that multiply by the spectral band's
-                # secdiff themselves (the Pallas kernels) get the
-                # ratio prefold (taucb_dyn); the XLA LUT paths get the
-                # exactly-weighted od (taucb_dyn_w + odcld_weighted)
-                # because a ratio-induced ulp shifts the tau_tbl
-                # quantizer.
-                from ..ops.rtrn import secdiff as _secdiff
+                # cloud-band aliasing expanded to spectral bands, with
+                # the cloud band's secdiff already applied (a ratio
+                # prefold would shift the tau_tbl quantizer by an ulp)
                 tau_cb, ncb, bounds_ok = cld_ops.cldprop_ncbands(
                     clouds, self.static_np, inflag=cfg.inflag,
                     iceflag=cfg.iceflag, liqflag=cfg.liqflag)
-                sec16 = _secdiff(prof.pwvcm, dtype)
-                if blocked or self.rt_pallas:
-                    taucb_dyn = cld_ops.expand_cloud_bands(
-                        tau_cb, ncb, sec16)
-                else:
-                    taucb_dyn_w = cld_ops.expand_cloud_bands(
-                        tau_cb, ncb, sec16, weighted=True)
-            if cfg.icld == 1 and blocked:
-                # banded fused path: per-band cloud od stays at band
-                # resolution all the way into the kernel (expanded to
-                # g in-kernel); no (B, L, G) cloud arrays at all
-                if taucb_dyn is not None:
-                    taucb_t = jnp.transpose(taucb_dyn, (1, 2, 0))
-                else:
-                    taucb_t, bounds_ok = cld_ops.cldprop_banded_blocked(
-                        clouds, self.static_np, inflag=cfg.inflag,
-                        iceflag=cfg.iceflag, liqflag=cfg.liqflag,
-                        interpret=cfg.pallas_interpret)
-                cl8_t = jnp.pad(clouds.cldfrac.T[:, None, :],
-                                ((0, 0), (0, 7), (0, 0))).astype(dtype)
-                out = run_rt(None, None, True, 1.0e-6,
-                             cloud_fields=(cl8_t, taucb_t))
-            elif cfg.icld != 1 and blocked:
-                # Pallas rtrnmr: per-band cloud od + the 16 per-layer
-                # overlap-factor rows stream into the sweep kernel
-                from ..ops import rtrn_pallas as rtp
-                if taucb_dyn is not None:
-                    taucb_t = jnp.transpose(taucb_dyn, (1, 2, 0))
-                else:
-                    taucb_t, bounds_ok = cld_ops.cldprop_banded_blocked(
-                        clouds, self.static_np, inflag=cfg.inflag,
-                        iceflag=cfg.iceflag, liqflag=cfg.liqflag,
-                        interpret=cfg.pallas_interpret)
-                play, plev = (planck_args if planck_b
-                              else (sc.planklay, sc.planklev))
-                out = rtp.rt_maxrandom_pallas(
-                    taut, fracs, play, plev, sc.plankbnd,
-                    sc.dplankbnd_dt, prof.semiss, prof.pwvcm, prof.pz,
-                    clouds.cldfrac.astype(dtype), taucb_t,
-                    taua=prof.taua, static=self.static_np,
-                    idrv=cfg.idrv, heatfac_val=self.heatfac,
-                    istart=cfg.istart, iend=cfg.iend,
-                    planck_blocked=planck_b,
-                    interpret=cfg.pallas_interpret)
+                taucloud = cld_ops.expand_cloud_bands(
+                    tau_cb, ncb, rt.secdiff(prof.pwvcm, dtype))
             else:
-                weighted = taucb_dyn_w is not None
-                if weighted:
-                    taucloud = taucb_dyn_w
-                elif taucb_dyn is not None:
-                    taucloud = taucb_dyn
-                else:
-                    taucloud, bounds_ok = cld_ops.cldprop(
-                        clouds, self.static_np, inflag=cfg.inflag,
-                        iceflag=cfg.iceflag, liqflag=cfg.liqflag)
-                odcld_g = taucloud[..., self.ngb0][..., gsel]
-                if cfg.icld == 1:
-                    cldf_g = jnp.broadcast_to(
-                        clouds.cldfrac[..., None], (B, L, len(gsel)))
-                    out = run_rt(cldf_g, odcld_g, True, 1.0e-6,
-                                 odcld_weighted=weighted)
-                else:
-                    out = rtmr.rt_maxrandom(
-                        taut, fracs, sc.planklay, sc.planklev,
-                        sc.plankbnd, sc.dplankbnd_dt, prof.semiss,
-                        prof.pwvcm, prof.pz, clouds.cldfrac, odcld_g,
-                        static=self.static_np, luts=self.luts,
-                        use_lut=cfg.use_lut, idrv=cfg.idrv,
-                        heatfac_val=self.heatfac, istart=cfg.istart,
-                        iend=cfg.iend, odcld_weighted=weighted)
+                taucloud, bounds_ok = cld_ops.cldprop(
+                    clouds, self.static_np, inflag=cfg.inflag,
+                    iceflag=cfg.iceflag, liqflag=cfg.liqflag)
+            odcld_g = taucloud[..., self.ngb0][..., gsel]
+            if cfg.icld == 1:
+                cldf_g = jnp.broadcast_to(
+                    clouds.cldfrac[..., None], (B, L, len(gsel)))
+                out = run_rt(cldf_g, odcld_g, True, 1.0e-6,
+                             odcld_weighted=weighted)
+            else:
+                out = rtmr.rt_maxrandom(
+                    taut, fracs, sc.planklay, sc.planklev,
+                    sc.plankbnd, sc.dplankbnd_dt, prof.semiss,
+                    prof.pwvcm, prof.pz, clouds.cldfrac, odcld_g,
+                    static=self.static_np, luts=self.luts,
+                    use_lut=cfg.use_lut, idrv=cfg.idrv,
+                    heatfac_val=self.heatfac, istart=cfg.istart,
+                    iend=cfg.iend, odcld_weighted=weighted)
 
         uflx, dflx = out.totuflux, out.totdflux
         duflx_dt = out.dtotuflux_dt
@@ -396,9 +239,9 @@ class RRTMGLW:
             htr = self.heatfac * (fnet[:, :-1] - fnet[:, 1:]) / dp
             htrc = self.heatfac * (fnetc[:, :-1] - fnetc[:, 1:]) / dp
             return Fluxes(uflx, dflx, htr, uflxc, out.totdclfl, htrc,
-                          duflx_dt, duflxc_dt, bounds_ok, win_ok)
+                          duflx_dt, duflxc_dt, bounds_ok)
         return Fluxes(uflx, dflx, out.htr, out.totuclfl, out.totdclfl,
-                      out.htrc, duflx_dt, duflxc_dt, bounds_ok, win_ok)
+                      out.htrc, duflx_dt, duflxc_dt, bounds_ok)
 
 
 @functools.partial(jax.jit, static_argnums=(0,))

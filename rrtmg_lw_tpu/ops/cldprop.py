@@ -32,7 +32,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..types import BandClouds, McicaClouds, McicaCloudsBlocked
+from ..types import BandClouds, McicaClouds
 
 CLDMIN = 1.0e-20
 
@@ -118,109 +118,6 @@ def cldprmc(clouds: McicaClouds, tables: dict, *, inflag: int,
         clouds.ciwpmc * abscoice + clouds.clwpmc * abscoliq,
         clouds.taucmc)
     return taucmc, ok
-
-
-def cldprmc_blocked(clouds, tables: dict, *, inflag: int,
-                    iceflag: int, liqflag: int, g_pad: int = 144):
-    """cldprmc fused with the relayout into the Pallas RT sweep
-    kernel's padded (L, G_pad, B) block layout.
-
-    Numerically identical to ``cldprmc`` + transpose + pad, but the
-    optics arithmetic rides the one unavoidable relayout pass instead
-    of materializing (B, L, G) intermediates first.  With a
-    ``McicaCloudsBlocked`` input (per-g arrays already (L, G, B)) there
-    is no relayout at all — only the zero pad.  Returns
-    (taucmc_t, cldfmc_t, bounds_ok) with the first two shaped
-    (L, g_pad, B) and zero-filled pad rows.
-    """
-    blocked_in = isinstance(clouds, McicaCloudsBlocked)
-    if blocked_in:
-        G = clouds.cldfmc.shape[1]         # may arrive pre-padded
-
-        def t(x):                          # (L, G, B) -> (L, g_pad, B)
-            if G == g_pad:
-                return x
-            return jnp.pad(x, ((0, 0), (0, g_pad - G), (0, 0)))
-    else:
-        G = clouds.cldfmc.shape[-1]
-        pads = ((0, 0), (0, 0), (0, g_pad - G))
-
-        def t(x):                          # (B, L, G) -> (L, g_pad, B)
-            return jnp.transpose(jnp.pad(x, pads), (1, 2, 0))
-
-    cldf_t = t(clouds.cldfmc)
-    if inflag == 0:
-        return t(clouds.taucmc), cldf_t, \
-            jnp.ones(clouds.reicmc.shape, bool)
-    if inflag == 1:
-        raise ValueError("INFLAG=1 not available with McICA "
-                         "(cldprmc.f90:191)")
-    dtype = clouds.taucmc.dtype
-    abscoice_b, abscoliq_b, ok = _ice_liq_coeffs(
-        clouds.reicmc, clouds.relqmc, iceflag, liqflag, tables, dtype)
-    ngb = np.asarray(tables["ngb"]) - 1
-    if blocked_in:
-        # coeffs (B, L, 16) -> (L, G, B): band-resolution transpose
-        # (16/140th of the data) + g-expansion on the middle axis.
-        # Pad rows (G > len(ngb)) replicate band 0; they stay zero in
-        # the output because their cldfmc is zero.
-        ngb_e = np.pad(ngb, (0, G - len(ngb)))
-        abscoice = jnp.take(jnp.transpose(abscoice_b, (1, 2, 0)),
-                            ngb_e, axis=1)
-        abscoliq = jnp.take(jnp.transpose(abscoliq_b, (1, 2, 0)),
-                            ngb_e, axis=1)
-    else:
-        abscoice = abscoice_b[..., ngb]
-        abscoliq = abscoliq_b[..., ngb]
-    abscoice = jnp.where(clouds.ciwpmc == 0.0, 0.0, abscoice)
-    abscoliq = jnp.where(clouds.clwpmc == 0.0, 0.0, abscoliq)
-    cwp = clouds.ciwpmc + clouds.clwpmc
-    active = (clouds.cldfmc >= CLDMIN) & (
-        (cwp >= CLDMIN) | (clouds.taucmc >= CLDMIN))
-    taucmc = jnp.where(
-        active,
-        clouds.ciwpmc * abscoice + clouds.clwpmc * abscoliq,
-        clouds.taucmc)
-    return t(taucmc), cldf_t, ok
-
-
-def cloud_optics_bands_blocked(clouds, tables: dict, *, iceflag: int,
-                               liqflag: int, use_pallas=None,
-                               interpret=False):
-    """Per-band ice/liquid absorption coefficients in the blocked
-    (L, 16, B) layout + bounds flag (B, L), for the RT kernel's fused
-    in-kernel cldprmc (inflag=2).  Only the (B, L)-sized particle-size
-    interpolation runs here; the g-expansion and the water-path
-    arithmetic happen inside the kernel.
-
-    On TPU/f32 with the tabulated parameterizations (iceflag 2/3,
-    liqflag 1) the interpolation runs in a Pallas one-hot-matmul kernel
-    (cldcoef_pallas) — the XLA ``jnp.take`` gathers it replaces cost
-    ~2.5 ms/step at B=4096, L=60 in layout-conversion copies."""
-    import jax
-
-    dtype = clouds.reicmc.dtype
-    reic, relq = clouds.reicmc, clouds.relqmc
-    B = reic.shape[0]
-    if use_pallas is None:
-        use_pallas = ((jax.default_backend() == "tpu" or interpret)
-                      and dtype == jnp.float32
-                      and iceflag in (2, 3) and liqflag == 1
-                      and B % 128 == 0)
-    if use_pallas:
-        from .cldcoef_pallas import ice_liq_coeffs_blocked
-        tile = max(t for t in (512, 256, 128) if B % t == 0)
-        abi_t, abl_t = ice_liq_coeffs_blocked(
-            reic, relq, iceflag, liqflag, tables, tile=tile,
-            interpret=interpret)
-        rmax = 131.0 if iceflag == 2 else 140.0
-        ok = ((reic >= 5.0) & (reic <= rmax)
-              & (relq >= 2.5) & (relq <= 60.0))
-        return abi_t, abl_t, ok
-    abscoice_b, abscoliq_b, ok = _ice_liq_coeffs(
-        reic, relq, iceflag, liqflag, tables, dtype)
-    return (jnp.transpose(abscoice_b, (1, 2, 0)),
-            jnp.transpose(abscoliq_b, (1, 2, 0)), ok)
 
 
 # rtrn/rtrnmr cloud-band patterns (rrtmg_lw_rtrn.f90:252-254): row 0
@@ -318,20 +215,19 @@ def cldprop_ncbands(clouds: BandClouds, tables: dict, *, inflag: int,
     return taucloud, ncbands, ok
 
 
-def expand_cloud_bands(taucloud_cb, ncbands, sec_band, weighted=False):
+def expand_cloud_bands(taucloud_cb, ncbands, sec_band):
     """Cloud-band taucloud -> per-SPECTRAL-band effective optical
     depth, folding the reference's ``secdiff(ib)`` aliasing
     (rrtmg_lw_rtrn.f90:321,343-348: the cloud od is weighted by the
     diffusivity of the *cloud* band index, not the spectral band's).
     ``sec_band`` is rtrn.secdiff(pwvcm) shaped (B, 16).
 
-    weighted=True (the XLA LUT paths): return the fully-weighted od
+    Returns the fully-weighted od
     ``sec[b, ipat(iband)] * taucloud_cb[b, l, ipat(iband)]`` exactly as
-    the Fortran forms it — the consumer must NOT re-apply secdiff
-    (rtrn/rtrnmr ``odcld_weighted``).  The alternative ratio prefold
-    (weighted=False, used by the f32 Pallas paths whose kernels
-    hard-multiply the spectral band's secdiff) perturbs the od by an
-    ulp, which the f64 LUT quantizer can resolve.
+    the Fortran forms it, so the consumer must NOT re-apply secdiff
+    (rtrn/rtrnmr ``odcld_weighted``).  A ratio prefold onto the
+    spectral band's secdiff would perturb the od by an ulp, which the
+    f64 LUT quantizer can resolve.
     """
     row = ((ncbands == 5).astype(jnp.int32)
            + 2 * (ncbands == 16).astype(jnp.int32))    # (B,) in 0..2
@@ -339,9 +235,7 @@ def expand_cloud_bands(taucloud_cb, ncbands, sec_band, weighted=False):
     tau_sel = jnp.take_along_axis(taucloud_cb,
                                   ipat_sel[:, None, :], axis=2)
     sec_sel = jnp.take_along_axis(sec_band, ipat_sel, axis=1)
-    if weighted:
-        return sec_sel[:, None, :] * tau_sel
-    return tau_sel * (sec_sel / sec_band)[:, None, :]
+    return sec_sel[:, None, :] * tau_sel
 
 
 def cldprop(clouds: BandClouds, tables: dict, *, inflag: int,
@@ -377,57 +271,3 @@ def cldprop(clouds: BandClouds, tables: dict, *, inflag: int,
                 + clouds.clwp[..., None] * abscoliq)
     taucloud = jnp.where(active[..., None], taucloud, 0.0)
     return taucloud, ok
-
-
-def cldprop_banded_blocked(clouds: BandClouds, tables: dict, *,
-                           inflag: int, iceflag: int, liqflag: int,
-                           interpret=False):
-    """cldprop emitting the per-band cloud od directly in the blocked
-    (L, 16, B) layout (for the RT kernel's in-kernel band->g
-    expansion), plus bounds_ok (B, L).  Numerically identical to
-    ``cldprop`` + transpose; the particle-size interpolation uses the
-    Pallas one-hot kernel on TPU (cldcoef_pallas) when applicable."""
-    import jax
-
-    dtype = clouds.cldfrac.dtype
-    B, L = clouds.cldfrac.shape
-    cwp = clouds.ciwp + clouds.clwp
-    tauctot = clouds.tauc.sum(axis=-1)
-    active = (clouds.cldfrac >= CLDMIN) & (
-        (cwp >= CLDMIN) | (tauctot >= CLDMIN))
-    act_t = active.T[:, None, :]                     # (L, 1, B)
-
-    if inflag == 0:
-        tau_t = jnp.where(act_t, jnp.transpose(clouds.tauc, (1, 2, 0)),
-                          0.0)
-        return tau_t, jnp.ones((B, L), bool)
-    if inflag == 1:
-        abscld1 = float(tables["abscld1"])
-        grey = jnp.broadcast_to((abscld1 * cwp).T[:, None, :],
-                                (L, 16, B))
-        return jnp.where(act_t, grey, 0.0), jnp.ones((B, L), bool)
-
-    use_pallas = ((jax.default_backend() == "tpu" or interpret)
-                  and dtype == jnp.float32
-                  and iceflag in (2, 3) and liqflag == 1
-                  and B % 128 == 0)
-    if use_pallas:
-        from .cldcoef_pallas import ice_liq_coeffs_blocked
-        tile = max(t for t in (512, 256, 128) if B % t == 0)
-        abi_t, abl_t = ice_liq_coeffs_blocked(
-            clouds.reic, clouds.relq, iceflag, liqflag, tables,
-            tile=tile, interpret=interpret)
-        rmax = 131.0 if iceflag == 2 else 140.0
-        ok = ((clouds.reic >= 5.0) & (clouds.reic <= rmax)
-              & (clouds.relq >= 2.5) & (clouds.relq <= 60.0))
-    else:
-        abi_b, abl_b, ok = _ice_liq_coeffs(
-            clouds.reic, clouds.relq, iceflag, liqflag, tables, dtype)
-        abi_t = jnp.transpose(abi_b, (1, 2, 0))
-        abl_t = jnp.transpose(abl_b, (1, 2, 0))
-    ciwp_t = clouds.ciwp.T[:, None, :]
-    clwp_t = clouds.clwp.T[:, None, :]
-    abi_t = jnp.where(ciwp_t == 0.0, 0.0, abi_t)
-    abl_t = jnp.where(clwp_t == 0.0, 0.0, abl_t)
-    tau_t = jnp.where(act_t, ciwp_t * abi_t + clwp_t * abl_t, 0.0)
-    return tau_t, ok

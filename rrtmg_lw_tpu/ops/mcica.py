@@ -1,6 +1,6 @@
 """McICA stochastic sub-column cloud generation.
 
-TPU-first re-design of ``mcica_subcol_gen_lw`` (both the GCM variant
+Batched re-design of ``mcica_subcol_gen_lw`` (both the GCM variant
 ``src/mcica_subcol_gen_lw.f90`` and the single-column variant
 ``src/mcica_subcol_gen_lw.1col.f90``) plus the supporting RNGs
 (``src/mcica_random_numbers.f90``).

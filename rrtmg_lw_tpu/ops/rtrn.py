@@ -1,6 +1,6 @@
 """Longwave radiative transfer: linear-in-tau level recurrence.
 
-TPU-first re-design of ``rtrnmc`` (rrtmg_lw_rtrnmc.f90:51-595) and
+Batched re-design of ``rtrnmc`` (rrtmg_lw_rtrnmc.f90:51-595) and
 ``rtrn`` (rrtmg_lw_rtrn.f90:51-606).  After expanding the per-band cloud
 arrays of ``rtrn`` to per-g-point arrays, the two solvers share identical
 recurrences, so one core serves both (random-overlap / McICA).  The
@@ -160,6 +160,14 @@ def _band_weights(delwave, ngb0, dtype):
     return jnp.asarray(w, dtype)
 
 
+def band_flux(x, wg):
+    """(L+1, B, G) level radiances -> (B, L+1) band-weighted flux.  The
+    contraction runs at full precision: a GPU's default f32 dot may
+    use TF32 (~3 digits), worth ~0.1-0.4 W/m2 over 140 g-points."""
+    return jnp.einsum("lbg,g->bl", x, wg,
+                      precision=jax.lax.Precision.HIGHEST)
+
+
 def rt_random_overlap(taut, fracs, planklay, planklev, plankbnd,
                       dplankbnd_dt, semiss, pwvcm, pz, cldf_g, odcld_g,
                       *, cloudy_lay, cld_gate, static, luts, use_lut=True,
@@ -276,8 +284,8 @@ def rt_random_overlap(taut, fracs, planklay, planklev, plankbnd,
 
     wg = _band_weights(static["delwave"], ngb0, dtype)          # (G,)
 
-    def flux(x):  # (L+1, B, G) -> (B, L+1)
-        return jnp.moveaxis(jnp.einsum("lbg,g->lb", x, wg), 0, 1)
+    def flux(x):
+        return band_flux(x, wg)
 
     totuflux = flux(urad)
     totdflux = flux(dradf)

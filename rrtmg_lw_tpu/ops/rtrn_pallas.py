@@ -1,1238 +1,300 @@
-"""Pallas TPU kernel for the radiative-transfer level recurrence.
+"""Fused random-overlap / McICA RT sweep: one Pallas kernel, Triton route.
 
-The XLA path (rtrn.py) precomputes eight (B, L, G) source/absorptivity
-arrays in HBM and then runs two `lax.scan`s over levels, so every
-radiance update round-trips HBM several times (measured ~16 ms for
-4096x60 columns on a v5e — ~70x off the memory bound).  This kernel
-fuses the precompute into the sweeps: for a 128-column tile everything
-is computed on the fly from taut/fracs/cloud blocks streamed through
-VMEM, radiance carries live in VMEM scratch across grid steps, and only
-the band-integrated fluxes (L+1 rows per column) ever return to HBM.
+The XLA sweep (``rtrn.rt_random_overlap``) materializes ~8 (B, L, G)
+per-level source/absorptivity arrays in ``precompute`` and stacks the
+per-level radiances of both ``lax.scan`` sweeps before the band-weighted
+flux sum.  This kernel does the same arithmetic without those arrays:
 
-Layout: (level, g, column) with the column tile in the 128-lane
-dimension and g padded to a multiple of 8 sublanes.  The per-band
-Planck/surface quantities expand to g-resolution with a constant
-one-hot (G_pad, 16) matmul.  Grid = (column tiles, 2 x level chunks):
-the first half of the j-axis streams level chunks top-down (downward
-sweep), the second half bottom-up (upward sweep); the surface
-reflection happens at the phase switch.  Pallas double-buffers the
-chunk DMAs automatically; flux rows accumulate into an output block
-that stays resident per column tile.
+  * one program owns a (``BLOCK_B`` columns x ``BLOCK_G`` g-points) tile;
+  * the level index is a ``fori_loop`` inside the program: the downward
+    sweep, the surface reflection and the upward sweep run back to back
+    with the radiances carried in registers;
+  * per-level optics (od, atrans, Planck transition, cloud absorptivity)
+    are computed in the kernel from taut/fracs/Planck/cloud inputs and
+    never written to memory (the upward sweep recomputes them);
+  * each g-block writes its band-weighted partial flux per level, and
+    XLA adds the partials.
 
-Matches rtrn.py (rtrnmc.f90/rtrn.f90 semantics) in the use_lut=False
-f32 configuration: 3-regime optical-depth factors with direct exp,
-water-vapor diffusivity secant, clear-sky twin stream gated by the
-cloud-in-path flag, idrv d/dT recursion.  The ``maxrand`` mode runs
-the rtrnmr (maximum-random overlap, rrtmg_lw_rtrnmr.f90) cloudy/clear
-sub-stream recursion instead, with the per-column overlap-factor
-pre-passes computed in XLA and shipped as 16 per-layer rows (see
-rt_maxrandom_pallas).  The f64/LUT golden path stays on the XLA
-implementations.
-
-Autodiff: custom_vjp — forward runs this kernel, backward differentiates
-the XLA implementation (identical math at f32).
+Coverage: ``rt_random_overlap`` semantics (clear sky, McICA per-g
+clouds, banded random overlap icld=1, the runtime-ncbands weighted
+cloud od) with idrv 0/1, float32, closed-form exp (``use_lut=False``).
+Everything else stays on the XLA sweep.  The gradient is the XLA
+sweep's: ``custom_vjp`` backward = ``jax.vjp`` of ``rt_random_overlap``.
 """
 
 from __future__ import annotations
 
 import functools
-import os
-
-import numpy as np
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..constants import FLUXFAC, REC_6, WTDIFF
-from . import rtrn as rt_xla
-from .cldprop import CLDMIN
-from .taumol_pallas import spec_load_frac, spec_load_taut
+from . import rtrn as rt
 
-NBANDS = 16
-
-
-def _pad_to(n, m):
-    return -(-n // m) * m
+# block shape and launch: the fastest of a sweep on an H100 (PERF.md)
+BLOCK_B = 32
+BLOCK_G = 32
+NUM_WARPS = 4
+NUM_STAGES = 1
 
 
-def _vmem_plan(Lp, Lc, G_pad, tile, cloudy, n_gres, n_bres):
-    """(resident, cache) VMEM strategy for the sweep kernel.
-
-    ``resident``: every input block is whole-(Lp) per column tile (one
-    DMA per tile instead of per sweep).  ``cache``: the down sweep
-    stores the per-level gas/cloud factors (at/tf/blay/plev_g [+3
-    cloudy rows]) in Lp-sized VMEM scratch for the up sweep to replay.
-    Deep profiles (production nlay ~70-140) overflow the residency
-    budget first; the cache is cheaper and decisive, so it is kept
-    with per-chunk input streaming until it too overflows.  Budget:
-    2x pipeline double-buffering, under the ~112 MB VMEM limit.
-    """
-    cache_rows = 4 * Lp + 1 + (3 * Lp if cloudy else 0)
-    cache_bytes = cache_rows * G_pad * tile * 4
-    row_bytes = (n_gres * G_pad + n_bres * NBANDS) * tile * 4
-    budget = 96 * 1024 * 1024
-    resident = 2 * row_bytes * Lp + cache_bytes < budget
-    cache = resident or (4 * row_bytes * Lc + cache_bytes < budget)
-    return resident, cache
+def _next_pow2(n):
+    return 1 << max(0, int(n) - 1).bit_length()
 
 
-E006 = float(np.exp(-0.06))      # exp at the small-od clamp point
-
-
-def _gas_factors_e(od, e_raw):
-    '''Gas factors from a precomputed unclamped exp(-od).  In the
-    small-od branch (od <= 0.06) the exponential never contributes
-    (Taylor forms are used), and the tf denominator's clamped
-    exp(-max(od, 0.06)) is the constant exp(-0.06) there -- so any
-    finite e_raw works for small od, which lets the cloudy path form
-    exp(-(od+odcld)) as the product of two already-needed exps
-    instead of a third exp per level.'''
-    small = od <= 0.06
-    od_safe = jnp.maximum(od, 0.06)           # match rtrn._gas_factors
-    e_safe = jnp.where(small, E006, e_raw)
-    om = 1.0 - e_safe
-    atrans = jnp.where(small, od - 0.5 * od * od, om)
-    # 1/od - e/(1-e) == (om - od*e)/(od*om): one VPU division instead
-    # of two (a few-ulp deviation from rtrn._gas_factors, far below
-    # the f32 parity tolerance)
+def _factors(od, small):
+    """(absorptivity, Planck transition factor) of optical depth od:
+    the small-od series below 0.06, closed-form exp above
+    (rtrn._gas_factors / _tot_factors with use_lut=False)."""
+    ods = jnp.maximum(od, 0.06)
+    e = jnp.exp(-ods)
+    a = jnp.where(small, od - 0.5 * od * od, 1.0 - e)
     tf = jnp.where(small, REC_6 * od,
-                   1.0 - 2.0 * (om - od_safe * e_safe)
-                   / (od_safe * om))
-    return atrans, tf
+                   1.0 - 2.0 * (1.0 / ods - e / (1.0 - e)))
+    return a, tf
 
 
-def _gas_factors(od):
-    return _gas_factors_e(od, jnp.exp(-od))
+def _sweep_kernel(*refs, L, G, bb, bg, cloudy, idrv, weighted, thresh):
+    it = iter(refs)
+    taut, fracs, play, plev, bnd, dbnd, sem, sec, ngb_r, wg_r = (
+        next(it) for _ in range(10))
+    if cloudy:
+        cldf, odc, cly_r, icl_r = (next(it) for _ in range(4))
+    up_o, dn_o, upc_o, dnc_o = (next(it) for _ in range(4))
+    if idrv:
+        dup_o, dupc_o = next(it), next(it)
 
+    ib = pl.program_id(0)
+    igb = pl.program_id(1)
+    b = ib * bb + jax.lax.broadcasted_iota(jnp.int32, (bb,), 0)
+    g = igb * bg + jax.lax.broadcasted_iota(jnp.int32, (bg,), 0)
+    b2 = b[:, None]
+    g2 = g[None, :]
+    gmask = jnp.broadcast_to(g2 < G, (bb, bg))
+    ngb = ngb_r[pl.ds(igb * bg, bg)][None, :]          # band of each g
+    wg = wg_r[pl.ds(igb * bg, bg)][None, :]            # 0 on padded g
+    bsl = pl.ds(ib * bb, bb)
 
-@functools.lru_cache(maxsize=32)
-def _build_kernel(L, Lp, Lc, G, G_pad, BT, L1p, cloudy, idrv, with_taua,
-                  gate_thresh, ngb0_key, delwave_key, resident, cache,
-                  fused_clouds, compact, banded, maxrand, interpret):
-    """Compile-time factory; ngb0/delwave passed as hashable tuples.
+    def per_g(ref, lev):                               # (B, L, G) tile
+        return plgpu.load(ref.at[b2, lev, g2], mask=gmask, other=0.0)
 
-    With ``resident`` the level-streamed inputs ship as whole-(Lp)
-    blocks that stay in VMEM for the full column tile, so each array
-    is DMA'd from HBM once per tile instead of once per sweep (the
-    down and up phases otherwise re-stream every chunk).
+    def per_band(ref, lev):                            # (B, L, 16) tile
+        return ref[b2, lev, ngb]
 
-    With ``fused_clouds`` the McICA cloud optics (cldprmc,
-    rrtmg_lw_cldprmc.f90:51-273) run inside the kernel: raw
-    cldfmc/ciwpmc/clwpmc/taucmc stream in at g-resolution, the
-    per-band ice/liquid absorption coefficients at band resolution
-    (expanded on the fly via the one-hot matmul), and the whole XLA
-    glue pass that otherwise materializes odcld in HBM disappears."""
-    ngb0 = np.asarray(ngb0_key, np.int32)            # (G,) band of g
-    delwave = np.asarray(delwave_key, np.float64)
-    nc = Lp // Lc
-    NOUT = 6 if idrv else 4
-    NRAD = 9 if maxrand else 6       # +cldrad/clrrad/rad sub-streams
+    def put(ref, lev, x):
+        ref[igb, lev, bsl] = jnp.sum(x * wg, axis=1)
 
-    # band-expansion one-hot (cols 0:16) + g flux weights (col 16),
-    # shipped as a kernel input (Pallas kernels cannot capture consts)
-    ew_np = np.zeros((G_pad, NBANDS + 1), np.float32)
-    ew_np[np.arange(G), ngb0] = 1.0
-    ew_np[:G, NBANDS] = (WTDIFF * delwave[ngb0] * FLUXFAC
-                         ).astype(np.float32)
+    sec_g = sec[b2, ngb]
 
-    def kernel(*refs):
-        refs = list(refs)
-        if resident:
-            # single plev array (Lp+1 levels); the up sweep reads the
-            # level-(row+1) Planck source from the pg_s scratch cache
-            ew_r, taut_r, fracs_r, play_r, plev_r, surf_r = refs[:6]
-            k = 6
-            plo_r = phi_r = None
-        else:
-            ew_r, taut_r, fracs_r, play_r, plo_r, phi_r, surf_r = \
-                refs[:7]
-            k = 7
-        taua_r = None
-        if with_taua:
-            taua_r = refs[k]; k += 1
+    def layer(lev, up):
+        """Per-level optics of layer ``lev`` for the down (up=False) or
+        up sweep: (atrans, source, atot, total source, cf, efclfrac)."""
+        f = per_g(fracs, lev)
+        od = jnp.maximum(sec_g * per_g(taut, lev), 0.0)
+        at, tf = _factors(od, od <= 0.06)
+        blay = per_band(play, lev)
+        dpl = per_band(plev, lev + 1 if up else lev) - blay
+        src = f * (blay + tf * dpl)
+        if not cloudy:
+            return at, src, None, None, None, None
+        cf = per_g(cldf, lev)
+        oc = per_g(odc, lev)
+        gate = cf >= thresh
+        oce = jnp.where(gate, oc if weighted else sec_g * oc, 0.0)
+        ef = jnp.where(gate, (1.0 - jnp.exp(-oce)) * cf, 0.0)
+        odt = od + oce
+        atot, tft = _factors(odt, odt < 0.06)
+        return at, src, atot, f * (blay + tft * dpl), cf, ef
+
+    def flag(ref, lev):
+        return (ref[lev, bsl] != 0)[:, None]
+
+    zero = jnp.zeros((bb, bg), jnp.float32)
+
+    # ---- downward sweep: layer L-1 .. 0, radiance at layer bottoms ----
+    put(dn_o, L, zero)
+    put(dnc_o, L, zero)
+
+    def down(i, carry):
+        radld, radclrd = carry
+        lev = L - 1 - i
+        at, bbd, atot, bbdtot, cf, ef = layer(lev, False)
+        rad_clr = radld + (bbd - radld) * at
         if cloudy:
-            if banded or maxrand:
-                cl8_r, taucb_r = refs[k:k + 2]
-                k += 2
-            elif compact:
-                cldf_r, cw_r, abi_r, abl_r = refs[k:k + 4]
-                k += 4
-            elif fused_clouds:
-                (cldf_r, ciwp_r, clwp_r, tauc_r,
-                 abi_r, abl_r) = refs[k:k + 6]
-                k += 6
-            else:
-                cldf_r, odcld_r = refs[k:k + 2]; k += 2
-        out_r, rad_s, flag_s = refs[k:k + 3]
-        k += 3
-        if cache:
-            # down-sweep level cache: the up sweep replays
-            # atrans/tf/blay (+cloud factors) from VMEM instead of
-            # recomputing the exp/divide/matmul work per level.
-            # With ``cache`` but not ``resident`` (deep profiles whose
-            # whole-(Lp) inputs overflow VMEM), inputs stream per
-            # chunk while the Lp-sized cache persists.
-            at_s, tf_s, blay_s, pg_s = refs[k:k + 4]
-            k += 4
+            gs = at * bbd
+            rad_cld = (radld - radld * (at + ef * (1.0 - at)) + gs
+                       + cf * (bbdtot * atot - gs))
+            radld_n = jnp.where(flag(cly_r, lev), rad_cld, rad_clr)
+            radclrd_n = jnp.where(flag(icl_r, lev),
+                                  radclrd + (bbd - radclrd) * at, radld_n)
+        else:
+            radld_n = radclrd_n = rad_clr
+        put(dn_o, lev, radld_n)
+        put(dnc_o, lev, radclrd_n)
+        return radld_n, radclrd_n
+
+    radld, radclrd = jax.lax.fori_loop(0, L, down, (zero, zero))
+
+    # ---- surface reflection ----
+    f0 = per_g(fracs, 0)
+    rad0 = f0 * bnd[b2, ngb]
+    reflect = 1.0 - sem[b2, ngb]
+    radlu = rad0 + reflect * radld
+    radclru = rad0 + reflect * radclrd
+    d0 = f0 * dbnd[b2, ngb] if idrv else zero
+    put(up_o, 0, radlu)
+    put(upc_o, 0, radclru)
+    if idrv:
+        put(dup_o, 0, d0)
+        put(dupc_o, 0, d0)
+    anyc = flag(icl_r, 0) if cloudy else None
+
+    # ---- upward sweep: layer 0 .. L-1, radiance at layer tops ----
+    def upward(lev, carry):
+        radlu, radclru, dlu, dclru = carry
+        at, bbu, atot, bbut, cf, ef = layer(lev, True)
+        rad_clr = radlu + (bbu - radlu) * at
+        if cloudy:
+            cly = flag(cly_r, lev)
+            gs = bbu * at
+            rad_cld = (radlu - radlu * (at + ef * (1.0 - at)) + gs
+                       + cf * (bbut * atot - gs))
+            radlu_n = jnp.where(cly, rad_cld, rad_clr)
+            radclru_n = jnp.where(anyc, radclru + (bbu - radclru) * at,
+                                  radlu_n)
+        else:
+            radlu_n = radclru_n = rad_clr
+        put(up_o, lev + 1, radlu_n)
+        put(upc_o, lev + 1, radclru_n)
+        if idrv:
             if cloudy:
-                atot_s, tftot_s, efc_s, cly_s = refs[k:k + 4]
-                k += 4
-        j = pl.program_id(1)
-        down = j < nc
-        chunk = jnp.where(down, nc - 1 - j, j - nc)
-        wg = ew_r[:, NBANDS:NBANDS + 1]
-
-        if resident:
-            def rd(ref, k):
-                return ref[pl.ds(chunk * Lc + k, 1)][0]
-        else:
-            def rd(ref, k):
-                return ref[k]
-
-        # band->g expansion: the one-hot ew is bf16-exact, so a 3-level
-        # bf16 split of the band values contracted in ONE MXU pass
-        # (K=48) reproduces f32 to ~2^-24 relative — Precision.HIGHEST
-        # would run the 6-pass emulation on every one of the ~300
-        # per-level dots per tile (measured ~1 ms/step)
-        ewb = ew_r[:, 0:NBANDS].astype(jnp.bfloat16)
-        ew3 = jnp.concatenate([ewb, ewb, ewb], axis=1)   # (G_pad, 48)
-
-        def edot_multi(ms):
-            """ONE expansion dot for several (16, BT) band rows: lane-
-            concatenated into (48, n*BT) so the per-dot fixed cost is
-            paid once per level instead of once per array."""
-            m16 = ms[0] if len(ms) == 1 else jnp.concatenate(ms, axis=1)
-            m1 = m16.astype(jnp.bfloat16)
-            r1 = m16 - m1.astype(jnp.float32)
-            m2 = r1.astype(jnp.bfloat16)
-            m3 = (r1 - m2.astype(jnp.float32)).astype(jnp.bfloat16)
-            m = jnp.concatenate([m1, m2, m3], axis=0)    # (48, n*BT)
-            M = jnp.dot(ew3, m, preferred_element_type=jnp.float32,
-                        precision=jax.lax.Precision.DEFAULT)
-            return [M[:, i * BT:(i + 1) * BT] for i in range(len(ms))]
-
-        def edot(m16):
-            return edot_multi([m16])[0]
-
-        secd_g = edot(surf_r[0:16, :])               # (G_pad, BT)
-
-        @pl.when(j == 0)
-        def _init():
-            out_r[:] = jnp.zeros((NOUT, L1p, BT), jnp.float32)
-            rad_s[:] = jnp.zeros(rad_s.shape, jnp.float32)
-            flag_s[:] = jnp.zeros(flag_s.shape, jnp.float32)
-
-        @pl.when(j == nc)
-        def _surface():
-            srows = [surf_r[16:32, :], surf_r[32:48, :]]
-            if idrv:
-                srows.append(surf_r[48:64, :])
-            sexp = edot_multi(srows)
-            sem_g, pbnd_g = sexp[0], sexp[1]
-            f0 = spec_load_frac(fracs_r[0])
-            rad0 = f0 * pbnd_g
-            reflect = 1.0 - sem_g
-            radlu0 = rad0 + reflect * rad_s[0]
-            radclru0 = rad0 + reflect * rad_s[1]
-            rad_s[2] = radlu0
-            rad_s[3] = radclru0
-            if maxrand:
-                zz = jnp.zeros((3,) + radlu0.shape, jnp.float32)
-                rad_s[6:9] = zz
-            out_r[0, 0, :] = jnp.sum(wg * radlu0, axis=0)
-            out_r[2, 0, :] = jnp.sum(wg * radclru0, axis=0)
-            if idrv:
-                d0 = f0 * sexp[2]
-                rad_s[4] = d0
-                rad_s[5] = d0
-                out_r[4, 0, :] = jnp.sum(wg * d0, axis=0)
-                out_r[5, 0, :] = jnp.sum(wg * d0, axis=0)
-
-        def common(k, plev_row):
-            """Per-level factors; ``plev_row`` is the (16, BT) Planck
-            LEVEL row expanded together with every other band-resolution
-            row of this level in ONE batched expansion dot.  Returns
-            (pg, <the level tuple>)."""
-            # upcast on read: taug/fracs may store bf16/f16 in HBM
-            # (RRTMG_SPEC_DTYPE); no-op at the f32 default
-            t = spec_load_taut(rd(taut_r, k))
-            f = spec_load_frac(rd(fracs_r, k))
-            rows = [rd(play_r, k), plev_row]
-            if with_taua:
-                rows.append(rd(taua_r, k))
-            if cloudy and (banded or maxrand):
-                rows.append(rd(taucb_r, k))
-            elif cloudy and (compact or fused_clouds):
-                rows.append(rd(abi_r, k))
-                rows.append(rd(abl_r, k))
-            exp = edot_multi(rows)
-            blay, pg = exp[0], exp[1]
-            nx = 2
-            if with_taua:
-                t = t + exp[nx]              # grey per-band aerosol add
-                nx += 1
-            od = jnp.maximum(secd_g * t, 0.0)
-            e_od = jnp.exp(-od)
-            atrans, tf = _gas_factors_e(od, e_od)
-            if not cloudy:
-                return pg, (f, blay, atrans, tf), None
-
-            # mask-derived rows, computed ALWAYS (cheap): the caller
-            # needs cldf/cly for its where-blends and the per-level
-            # any-cloudy scalar for the pl.when skip gate
-            if banded or maxrand:
-                # deterministic per-band clouds (cldprop,
-                # rrtmg_lw_cldprop.f90): per-layer cloud fraction
-                # broadcast over g, per-band od expanded in-kernel
-                cl8 = rd(cl8_r, k)                    # (8|16, BT)
-                cldf = jnp.broadcast_to(cl8[0:1], (G_pad, BT))
-                gate = cldf >= gate_thresh
-                cly = cl8[0:1] >= gate_thresh         # (1, BT)
-                lvl_any = jnp.max(cl8[0:1]) >= gate_thresh
+                dlu_n = jnp.where(cly,
+                                  dlu * cf * (1.0 - atot)
+                                  + dlu * (1.0 - cf) * (1.0 - at),
+                                  dlu * (1.0 - at))
+                dclru_n = jnp.where(anyc, dclru * (1.0 - at), dlu_n)
             else:
-                cldf = rd(cldf_r, k)
-                if cldf.dtype != jnp.float32:
-                    # int8 binary sub-column mask (1/4 the HBM traffic;
-                    # the 0/1 values are exact in both dtypes)
-                    cldf = cldf.astype(jnp.float32)
-                gate = cldf >= gate_thresh
-                cly = (jnp.max(gate.astype(jnp.float32), axis=0,
-                               keepdims=True) > 0.0)  # (1, BT)
-                lvl_any = jnp.max(cldf) >= gate_thresh
+                dlu_n = dclru_n = dlu * (1.0 - at)
+            put(dup_o, lev + 1, dlu_n)
+            put(dupc_o, lev + 1, dclru_n)
+            return radlu_n, radclru_n, dlu_n, dclru_n
+        return radlu_n, radclru_n, dlu, dclru
 
-            def cld_opt():
-                """The EXPENSIVE cloudy optics (exp/divide chains) —
-                the caller runs this under pl.when(lvl_any) so levels
-                where no cell of the tile is cloudy skip it entirely
-                (exact: every consumer selects through cly, which is
-                all-false there)."""
-                if banded or maxrand:
-                    od_raw = exp[nx]
-                elif compact:
-                    # generator-form clouds: re-form the per-g water
-                    # paths as (per-layer value x binary mask) — the
-                    # same f32 product mcica_subcol_lw materializes
-                    # (mcica_subcol_gen_lw.f90:655-668), fused here
-                    lay = rd(cw_r, k)                 # (8, BT)
-                    ciwp = lay[0:1] * cldf
-                    clwp = lay[1:2] * cldf
-                    absc_i, absc_l = exp[nx], exp[nx + 1]
-                    absc_i = jnp.where(ciwp == 0.0, 0.0, absc_i)
-                    absc_l = jnp.where(clwp == 0.0, 0.0, absc_l)
-                    cwp = ciwp + clwp
-                    active = (cldf >= CLDMIN) & (cwp >= CLDMIN)
-                    od_raw = jnp.where(
-                        active, ciwp * absc_i + clwp * absc_l, 0.0)
-                elif fused_clouds:
-                    # cldprmc (rrtmg_lw_cldprmc.f90:128-142) inline:
-                    # band coeffs expand to g via the one-hot matmul
-                    absc_i, absc_l = exp[nx], exp[nx + 1]
-                    ciwp = rd(ciwp_r, k)
-                    clwp = rd(clwp_r, k)
-                    tauc = rd(tauc_r, k)
-                    absc_i = jnp.where(ciwp == 0.0, 0.0, absc_i)
-                    absc_l = jnp.where(clwp == 0.0, 0.0, absc_l)
-                    cwp = ciwp + clwp
-                    active = (cldf >= CLDMIN) & (
-                        (cwp >= CLDMIN) | (tauc >= CLDMIN))
-                    od_raw = jnp.where(
-                        active, ciwp * absc_i + clwp * absc_l, tauc)
-                else:
-                    od_raw = rd(odcld_r, k)
-                odcld = jnp.where(gate, secd_g * od_raw, 0.0)
-                e_cld = jnp.exp(-odcld)
-                if maxrand:
-                    efc = None     # rtrnmr uses sub-streams, not
-                                   # the effective cloud fraction
-                else:
-                    efc = jnp.where(gate, (1.0 - e_cld) * cldf, 0.0)
-                atot, tftot = _gas_factors_e(od + odcld, e_od * e_cld)
-                return efc, atot, tftot
+    jax.lax.fori_loop(0, L, upward, (radlu, radclru, d0, d0))
 
-            return pg, (f, blay, atrans, tf), (cldf, cly, lvl_any,
-                                               cld_opt)
 
-        @pl.when(down)
-        def _down():
-            for k in reversed(range(Lc)):
-                # the level-k Planck source row joins the batched
-                # expansion dot inside common()
-                pg, g, ci = common(k, rd(plev_r, k) if resident
-                                   else rd(plo_r, k))
-                f, blay, atrans, tf = g
-                dpl = pg - blay
-                row = chunk * Lc + k
-                if cache:
-                    at_s[pl.ds(row, 1)] = atrans[None]
-                    tf_s[pl.ds(row, 1)] = tf[None]
-                    blay_s[pl.ds(row, 1)] = blay[None]
-                    pg_s[pl.ds(row, 1)] = pg[None]
-                    if k == Lc - 1:
-                        # the up sweep needs the level-(row+1) Planck
-                        # source; every level but the top one is some
-                        # chunk's plo row — cache the top level here
-                        @pl.when(chunk == nc - 1)
-                        def _top():
-                            pg_s[pl.ds(Lp, 1)] = edot(
-                                rd(plev_r, Lc) if resident
-                                else rd(phi_r, Lc - 1))[None]
-                bbd = f * (blay + tf * dpl)
-                gassrc = atrans * bbd
-                radld = rad_s[0]
-                rad_gas = radld + (bbd - radld) * atrans
-                if maxrand:
-                    # rtrnmr down recursion (rrtmg_lw_rtrnmr.f90:
-                    # 591-615): cloudy/clear sub-streams exchanging a
-                    # correction radiance, restarted at each cloud
-                    # block boundary (istcldd); overlap factors come
-                    # from the XLA per-column pre-pass rows.  Levels
-                    # where no cell of the tile is cloudy skip the
-                    # whole recursion: cly is all-false there, so the
-                    # sub-streams and radld are unchanged vs the old
-                    # unconditional where-blends
-                    cldf, cly, lvl_any, cld_opt = ci
-                    cl16 = rd(cl8_r, k)
-                    rad_s[0] = rad_gas
-
-                    @pl.when(lvl_any)
-                    def _mr():
-                        _, atot, tftot = cld_opt()
-                        if cache:
-                            atot_s[pl.ds(row, 1)] = atot[None]
-                            tftot_s[pl.ds(row, 1)] = tftot[None]
-                        cf = cl16[0:1]
-                        ist = cl16[2:3] > 0.0
-                        fclr1, fclr2, fcld1 = (cl16[4:5], cl16[5:6],
-                                               cl16[6:7])
-                        fcld2, fcmb1, fcmb2 = (cl16[7:8], cl16[8:9],
-                                               cl16[9:10])
-                        bbdtot = f * (blay + tftot * dpl)
-                        cldradd = jnp.where(ist, cf * radld, rad_s[6])
-                        clrradd = jnp.where(ist, radld - cf * radld,
-                                            rad_s[7])
-                        rad0 = jnp.where(ist, 0.0, rad_s[8])
-                        ttot = 1.0 - atot
-                        cldsrc = bbdtot * atot
-                        cldradd1 = cldradd * ttot + cf * cldsrc
-                        clrradd1 = (clrradd * (1.0 - atrans)
-                                    + (1.0 - cf) * gassrc)
-                        radmod = (rad0 * (fclr1 * (1.0 - atrans)
-                                          + fcld1 * ttot)
-                                  - fcmb1 * gassrc + fcmb2 * cldsrc)
-                        rad_n = (-radmod + fclr2 * (clrradd1 + radmod)
-                                 - fcld2 * (cldradd1 - radmod))
-                        rad_s[6] = jnp.where(cly, cldradd1 + rad_n,
-                                             rad_s[6])
-                        rad_s[7] = jnp.where(cly, clrradd1 - rad_n,
-                                             rad_s[7])
-                        rad_s[8] = jnp.where(cly, rad_n, rad_s[8])
-                        rad_s[0] = jnp.where(cly, cldradd1 + clrradd1,
-                                             rad_gas)
-                    radld_n = rad_s[0]
-                    icl = cl16[3:4] > 0.0
-                    radclrd = rad_s[1]
-                    radclrd_n = jnp.where(icl,
-                                          radclrd + (bbd - radclrd)
-                                          * atrans,
-                                          radld_n)
-                    if k == 0:
-                        # bottom layer: its iclddn is the whole-column
-                        # any-cloud flag the up sweep needs
-                        @pl.when(chunk == 0)
-                        def _anyc():
-                            flag_s[1:2, :] = cl16[3:4]
-                elif cloudy:
-                    cldf, cly, lvl_any, cld_opt = ci
-                    if cache:
-                        # the up sweep replays cly (and gates its own
-                        # skip on it), so this row is written ALWAYS;
-                        # atot/tftot/efc rows stay garbage on skipped
-                        # levels — only ever selected where cly is true
-                        cly_s[pl.ds(row, 1)] = cly.astype(jnp.float32)
-                    rad_s[0] = rad_gas
-
-                    @pl.when(lvl_any)
-                    def _cld():
-                        efc, atot, tftot = cld_opt()
-                        if cache:
-                            atot_s[pl.ds(row, 1)] = atot[None]
-                            tftot_s[pl.ds(row, 1)] = tftot[None]
-                            efc_s[pl.ds(row, 1)] = efc[None]
-                        bbdtot = f * (blay + tftot * dpl)
-                        rad_cld = (radld
-                                   - radld * (atrans
-                                              + efc * (1.0 - atrans))
-                                   + gassrc
-                                   + cldf * (bbdtot * atot - gassrc))
-                        rad_s[0] = jnp.where(cly, rad_cld, rad_gas)
-                    radld_n = rad_s[0]
-                    flag = jnp.maximum(flag_s[0:1, :],
-                                       cly.astype(jnp.float32))
-                    radclrd = rad_s[1]
-                    radclrd_n = jnp.where(flag > 0.0,
-                                          radclrd + (bbd - radclrd)
-                                          * atrans,
-                                          radld_n)
-                    flag_s[0:1, :] = flag
-                else:
-                    radld_n = rad_gas
-                    radclrd_n = radld_n
-                    rad_s[0] = radld_n
-                rad_s[1] = radclrd_n
-                out_r[1, pl.ds(row, 1), :] = jnp.sum(
-                    wg * radld_n, axis=0, keepdims=True)
-                out_r[3, pl.ds(row, 1), :] = jnp.sum(
-                    wg * radclrd_n, axis=0, keepdims=True)
-
-        @pl.when(jnp.logical_not(down))
-        def _up():
-            anyc = (flag_s[1:2, :] if maxrand
-                    else flag_s[0:1, :]) > 0.0
-            for k in range(Lc):
-                ci = None
-                if cache:
-                    # replay the down sweep's per-level factors from
-                    # the VMEM cache: no exp/divide/matmul here
-                    row = chunk * Lc + k
-                    f = spec_load_frac(rd(fracs_r, k))
-                    atrans = at_s[pl.ds(row, 1)][0]
-                    tf = tf_s[pl.ds(row, 1)][0]
-                    blay = blay_s[pl.ds(row, 1)][0]
-                    dpu = pg_s[pl.ds(row + 1, 1)][0] - blay
-                    if cloudy:
-                        if banded or maxrand:
-                            cl16 = rd(cl8_r, k)
-                            cldf = jnp.broadcast_to(
-                                cl16[0:1], (G_pad, BT))
-                            cly = cl16[0:1] >= gate_thresh
-                            lvl_any = (jnp.max(cl16[0:1])
-                                       >= gate_thresh)
-                        else:
-                            cldf = rd(cldf_r, k)
-                            if cldf.dtype != jnp.float32:
-                                cldf = cldf.astype(jnp.float32)
-                            cly = cly_s[pl.ds(row, 1)] > 0.0
-                            lvl_any = jnp.max(
-                                cly_s[pl.ds(row, 1)]) > 0.0
-
-                        def cached_opt(row=row):
-                            atot = atot_s[pl.ds(row, 1)][0]
-                            tftot = tftot_s[pl.ds(row, 1)][0]
-                            efc = (None if maxrand
-                                   else efc_s[pl.ds(row, 1)][0])
-                            return efc, atot, tftot
-                        ci = (cldf, cly, lvl_any, cached_opt)
-                else:
-                    pg, g, ci = common(k, rd(phi_r, k))
-                    f, blay, atrans, tf = g
-                    if cloudy and (banded or maxrand):
-                        cl16 = rd(cl8_r, k)
-                    dpu = pg - blay
-                bbu = f * (blay + tf * dpu)
-                gassrc = bbu * atrans
-                radlu = rad_s[2]
-                radclru = rad_s[3]
-                rad_gas = radlu + (bbu - radlu) * atrans
-                if maxrand:
-                    # rtrnmr up recursion (rrtmg_lw_rtrnmr.f90:678-703)
-                    cldf, cly, lvl_any, cld_opt = ci
-                    rad_s[2] = rad_gas
-                    if idrv:
-                        # stage the d/dT blend through scratch row 4
-                        # inside the pl.when body (as the random-overlap
-                        # path does): atot is only read where the down
-                        # sweep wrote it, never from all-clear levels'
-                        # uninitialized cache rows
-                        dlu = rad_s[4]
-                        dlu_gas = dlu * (1.0 - atrans)
-                        rad_s[4] = dlu_gas
-
-                    @pl.when(lvl_any)
-                    def _mr():
-                        _, atot, tftot = cld_opt()
-                        cf = cl16[0:1]
-                        ist = cl16[1:2] > 0.0
-                        fclr1, fclr2, fcld1 = (cl16[10:11],
-                                               cl16[11:12],
-                                               cl16[12:13])
-                        fcld2, fcmb1, fcmb2 = (cl16[13:14],
-                                               cl16[14:15],
-                                               cl16[15:16])
-                        bbut = f * (blay + tftot * dpu)
-                        cldradu = jnp.where(ist, cf * radlu, rad_s[6])
-                        clrradu = jnp.where(ist, radlu - cf * radlu,
-                                            rad_s[7])
-                        rad0 = jnp.where(ist, 0.0, rad_s[8])
-                        ttot = 1.0 - atot
-                        cldsrc = bbut * atot
-                        cldradu1 = cldradu * ttot + cf * cldsrc
-                        clrradu1 = (clrradu * (1.0 - atrans)
-                                    + (1.0 - cf) * gassrc)
-                        radmod = (rad0 * (fclr1 * (1.0 - atrans)
-                                          + fcld1 * ttot)
-                                  - fcmb1 * gassrc + fcmb2 * cldsrc)
-                        rad_n = (-radmod + fclr2 * (clrradu1 + radmod)
-                                 - fcld2 * (cldradu1 - radmod))
-                        rad_s[6] = jnp.where(cly, cldradu1 + rad_n,
-                                             rad_s[6])
-                        rad_s[7] = jnp.where(cly, clrradu1 - rad_n,
-                                             rad_s[7])
-                        rad_s[8] = jnp.where(cly, rad_n, rad_s[8])
-                        rad_s[2] = jnp.where(cly, cldradu1 + clrradu1,
-                                             rad_gas)
-                        if idrv:
-                            # (the Pallas maxrand path never runs idrv
-                            # in production — rt_maxrandom_pallas
-                            # forwards idrv to the XLA where-blend)
-                            rad_s[4] = jnp.where(
-                                cly,
-                                dlu * cldf * (1.0 - atot)
-                                + dlu * (1.0 - cldf) * (1.0 - atrans),
-                                dlu_gas)
-                    radlu_n = rad_s[2]
-                    radclru_n = jnp.where(anyc,
-                                          radclru + (bbu - radclru)
-                                          * atrans,
-                                          radlu_n)
-                elif cloudy:
-                    cldf, cly, lvl_any, cld_opt = ci
-                    rad_s[2] = rad_gas
-                    if idrv:
-                        # the d/dT recursion needs atot where cly —
-                        # stage the blend through scratch row 4 so it
-                        # lives across the pl.when boundary
-                        dlu = rad_s[4]
-                        dlu_gas = dlu * (1.0 - atrans)
-                        rad_s[4] = dlu_gas
-
-                    @pl.when(lvl_any)
-                    def _cld():
-                        efc, atot, tftot = cld_opt()
-                        bbut = f * (blay + tftot * dpu)
-                        rad_cld = (radlu
-                                   - radlu * (atrans
-                                              + efc * (1.0 - atrans))
-                                   + gassrc
-                                   + cldf * (bbut * atot - gassrc))
-                        rad_s[2] = jnp.where(cly, rad_cld, rad_gas)
-                        if idrv:
-                            rad_s[4] = jnp.where(
-                                cly,
-                                dlu * cldf * (1.0 - atot)
-                                + dlu * (1.0 - cldf) * (1.0 - atrans),
-                                dlu_gas)
-                    radlu_n = rad_s[2]
-                    radclru_n = jnp.where(anyc,
-                                          radclru + (bbu - radclru)
-                                          * atrans,
-                                          radlu_n)
-                else:
-                    radlu_n = rad_gas
-                    radclru_n = radlu_n
-                    rad_s[2] = radlu_n
-                rad_s[3] = radclru_n
-                row = chunk * Lc + k + 1
-                out_r[0, pl.ds(row, 1), :] = jnp.sum(
-                    wg * radlu_n, axis=0, keepdims=True)
-                out_r[2, pl.ds(row, 1), :] = jnp.sum(
-                    wg * radclru_n, axis=0, keepdims=True)
-                if idrv:
-                    dclru = rad_s[5]
-                    if cloudy:                # incl. maxrand
-                        dlu_n = rad_s[4]      # staged by the blend
-                    else:
-                        dlu_n = rad_s[4] * (1.0 - atrans)
-                        rad_s[4] = dlu_n
-                    dclru_n = jnp.where(anyc, dclru * (1.0 - atrans),
-                                        dlu_n) if cloudy else dlu_n
-                    rad_s[5] = dclru_n
-                    out_r[4, pl.ds(row, 1), :] = jnp.sum(
-                        wg * dlu_n, axis=0, keepdims=True)
-                    out_r[5, pl.ds(row, 1), :] = jnp.sum(
-                        wg * dclru_n, axis=0, keepdims=True)
-
-    if resident:
-        whole = lambda i, j: (0, 0, i)
-        gxb = pl.BlockSpec((Lp, G_pad, BT), whole,
-                           memory_space=pltpu.VMEM)
-        bxb = pl.BlockSpec((Lp, NBANDS, BT), whole,
-                           memory_space=pltpu.VMEM)
-        pxb = pl.BlockSpec((Lp + 1, NBANDS, BT), whole,
-                           memory_space=pltpu.VMEM)
-        planck_specs = [bxb, pxb]            # play, plev
-    else:
-        chunk_map = lambda i, j: (jnp.where(j < nc, nc - 1 - j, j - nc),
-                                  0, i)
-        gxb = pl.BlockSpec((Lc, G_pad, BT), chunk_map,
-                           memory_space=pltpu.VMEM)
-        bxb = pl.BlockSpec((Lc, NBANDS, BT), chunk_map,
-                           memory_space=pltpu.VMEM)
-        planck_specs = [bxb, bxb, bxb]       # play, plo, phi
-    in_specs = [pl.BlockSpec((G_pad, NBANDS + 1), lambda i, j: (0, 0),
-                             memory_space=pltpu.VMEM),
-                gxb, gxb] + planck_specs + [
-                pl.BlockSpec((64, BT), lambda i, j: (0, i),
-                             memory_space=pltpu.VMEM)]
-    if with_taua:
-        in_specs += [bxb]
+def _sweep_fluxes(taut, fracs, planklay, planklev, plankbnd, dplankbnd_dt,
+                  semiss, pwvcm, cldf_g, odcld_g, *, ngb0, wg, cloudy,
+                  thresh, idrv, weighted, interpret):
+    """Band-weighted level fluxes from the kernel: a tuple of 4 (or 6
+    with idrv) (B, L+1) arrays (up, down, clear up, clear down
+    [, d up/dT, d clear up/dT])."""
+    B, L, G = taut.shape
+    bb = min(BLOCK_B, _next_pow2(B))
+    bg = min(BLOCK_G, _next_pow2(G))
+    n_gb = -(-G // bg)
+    Bp = -(-B // bb) * bb
+    f32 = jnp.float32
+    sec = rt.secdiff(pwvcm, f32)
+    ins = [taut, fracs, planklay, planklev, plankbnd, dplankbnd_dt,
+           semiss, sec]
     if cloudy:
-        if banded or compact or maxrand:
-            nrow = 16 if maxrand else 8
-            if resident:
-                cwspec = pl.BlockSpec((Lp, nrow, BT), whole,
-                                      memory_space=pltpu.VMEM)
-            else:
-                cwspec = pl.BlockSpec((Lc, nrow, BT), chunk_map,
-                                      memory_space=pltpu.VMEM)
-        if banded or maxrand:
-            in_specs += [cwspec, bxb]
-        elif compact:
-            in_specs += [gxb, cwspec, bxb, bxb]
-        elif fused_clouds:
-            in_specs += [gxb, gxb, gxb, gxb, bxb, bxb]
-        else:
-            in_specs += [gxb, gxb]
-
-    scratch_shapes = [
-        pltpu.VMEM((NRAD, G_pad, BT), jnp.float32),
-        pltpu.VMEM((8, BT), jnp.float32),
-    ]
-    if cache:
-        # down-sweep level cache (at/tf/blay + plev_g rows)
-        scratch_shapes += [
-            pltpu.VMEM((Lp, G_pad, BT), jnp.float32),       # at_s
-            pltpu.VMEM((Lp, G_pad, BT), jnp.float32),       # tf_s
-            pltpu.VMEM((Lp, G_pad, BT), jnp.float32),       # blay_s
-            pltpu.VMEM((Lp + 1, G_pad, BT), jnp.float32),   # pg_s
-        ]
-        if cloudy:
-            scratch_shapes += [
-                pltpu.VMEM((Lp, G_pad, BT), jnp.float32),   # atot_s
-                pltpu.VMEM((Lp, G_pad, BT), jnp.float32),   # tftot_s
-                pltpu.VMEM((Lp, G_pad, BT), jnp.float32),   # efc_s
-                pltpu.VMEM((Lp, BT), jnp.float32),          # cly_s
-            ]
-
-    def run(Bp, *arrays):
-        return pl.pallas_call(
-            kernel,
-            out_shape=jax.ShapeDtypeStruct((NOUT, L1p, Bp), jnp.float32),
-            grid=(Bp // BT, 2 * nc),
-            in_specs=in_specs,
-            out_specs=pl.BlockSpec((NOUT, L1p, BT),
-                                   lambda i, j: (0, 0, i),
-                                   memory_space=pltpu.VMEM),
-            scratch_shapes=scratch_shapes,
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=112 * 1024 * 1024),
-            interpret=bool(interpret),
-        )(jnp.asarray(ew_np), *arrays)
-
-    return run
-
-
-def _prep(x, Lp, G_pad, Bp, dims="lgb"):
-    """(B, L, G) -> padded (Lp, G_pad, Bp) etc., zero filled."""
-    if dims == "lgb":
-        x = jnp.moveaxis(x, 0, 2)                   # (L, G, B)
-        pads = ((0, Lp - x.shape[0]), (0, G_pad - x.shape[1]),
-                (0, Bp - x.shape[2]))
-    elif dims == "glb":                             # native (G, L, B)
-        x = jnp.moveaxis(x, 0, 1)                   # lane dim untouched
-        pads = ((0, Lp - x.shape[0]), (0, G_pad - x.shape[1]),
-                (0, Bp - x.shape[2]))
-    else:                                           # (B, L, 16) -> (L,16,B)
-        x = jnp.moveaxis(x, 0, 2)
-        pads = ((0, Lp - x.shape[0]), (0, 0), (0, Bp - x.shape[2]))
-    return jnp.pad(x, pads)
-
-
-def rt_fluxes_pallas(taut, fracs, planklay, planklev, plankbnd,
-                     dplankbnd_dt, semiss, pwvcm, cldf_g, odcld_g,
-                     taua=None, *, gate_thresh, ngb0, delwave, cloudy,
-                     idrv, native=False, clouds_blocked=False,
-                     planck_blocked=False, cloud_fields=None, tile=None,
-                     lc_clear=20, lc_cloudy=12, interpret=False):
-    """Band-integrated fluxes (B, L+1) x {up, down, clrup, clrdn}
-    [+ dup/dT, dclrup/dT] via the fused Pallas sweep kernel.
-
-    cldf_g/odcld_g are ignored when cloudy=False.  With native=True,
-    taut/fracs arrive in the taumol kernel's (G, L, B) layout and taua
-    (B, L, 16) is added per band inside the kernel.  With
-    native="blocked" they arrive already in this kernel's padded
-    (L, G_pad, B) block layout (zero relayout: taumol wrote it).
-    With planck_blocked, planklay is (L, 16, B) and planklev is
-    (L+1, 16, B) straight from the Planck Pallas kernel
-    (planck_pallas.planck_interp_blocked) — no _prep relayout.
-    """
-    blocked = native == "blocked"
-    if blocked:
-        L, G_pad_in, B = taut.shape
-        G = len(ngb0)
-        if G_pad_in != _pad_to(G, 8):
-            raise ValueError("blocked taut g-pad mismatch")
-    elif native:
-        G, L, B = taut.shape
-    else:
-        B, L, G = taut.shape
-    dtype = taut.dtype
-    # blocked taut/fracs may arrive in the reduced HBM storage dtype
-    # (RRTMG_SPEC_DTYPE experiment); everything else must be f32
-    assert dtype == jnp.float32 or (
-        blocked and dtype in (jnp.bfloat16, jnp.float16, jnp.uint16))
-    dtype = jnp.float32
-    # launch-shape A/B knobs (tools/ab_matrix.py sweeps these on-chip;
-    # read at trace time, so each setting needs a fresh jit)
-    if tile is None:
-        tile = resolve_tile(B)
-    else:
-        tile = int(os.environ.get("RRTMG_RT_TILE", tile))
-    Lc = lc_cloudy if cloudy else lc_clear
-    Lc = int(os.environ.get("RRTMG_RT_LC", Lc))
-    Lc = min(Lc, L)
-    if blocked:
-        # blocked arrays cannot be padded: Lc must divide L and the
-        # column tile must divide B (caller gates on this)
-        divs = [d for d in range(Lc, 0, -1) if L % d == 0]
-        Lc = divs[0]
-        if L % Lc or B % tile:
-            raise ValueError("blocked layout needs Lc | L and tile | B")
-    Lp = _pad_to(L, Lc)
-    G_pad = _pad_to(G, 8)
-    Bp = _pad_to(B, tile)
-    L1p = _pad_to(Lp + 1, 8)
-
-    spec_dims = "glb" if native else "lgb"
-    with_taua = taua is not None
-    fused0 = cloud_fields is not None
-    compact = fused0 and len(cloud_fields) == 4
-    two = fused0 and len(cloud_fields) == 2
-    banded = two and cloud_fields[0].shape[1] == 8
-    maxrand = two and cloud_fields[0].shape[1] == 16
-
-    # whole-(Lp) VMEM residency: each input is DMA'd once per column
-    # tile instead of once per sweep, and the down sweep caches the
-    # per-level gas/cloud factors in VMEM scratch for the up sweep.
-    # Budget: 2x (pipeline double buffer) x per-tile input bytes +
-    # the level-cache scratch, kept under the 112 MB VMEM limit.
-    mask_i8 = (compact and
-               jnp.dtype(cloud_fields[0].dtype).itemsize == 1)
-    n_gres = 2 + ((0 if (banded or maxrand)
-                   else (0.25 if mask_i8 else 1) if compact
-                   else (4 if fused0 else 2)) if cloudy else 0)
-    n_bres = 3 + (1 if with_taua else 0) + \
-        ((2 if (banded or maxrand) else 3 if compact else 2)
-         if fused0 else 0)
-    resident, cache = _vmem_plan(Lp, Lc, G_pad, tile, cloudy,
-                                 n_gres, n_bres)
-    if os.environ.get("RRTMG_RT_NO_CACHE"):      # A/B diagnostics
-        resident = cache = False
-    elif os.environ.get("RRTMG_RT_NO_RESIDENT"):
-        # force the chunked-input + level-cache layout (deep-profile
-        # configuration) at small test shapes
-        resident = False
-
-    sec_band = rt_xla.secdiff(pwvcm, dtype)          # (B, 16)
-    surf = jnp.concatenate([
-        sec_band.T, semiss.T, plankbnd.T,
-        (dplankbnd_dt.T if idrv else jnp.zeros_like(plankbnd.T))],
-        axis=0)                                      # (64, B)
-    surf = jnp.pad(surf, ((0, 0), (0, Bp - B)))
-
-    if planck_blocked:
-        # (L, 16, B) / (L+1, 16, B) from the Planck Pallas kernel;
-        # on the blocked native path Lp == L and Bp == B so these pads
-        # are no-ops
-        pads = ((0, Lp - L), (0, 0), (0, Bp - planklay.shape[2]))
-        play_a = jnp.pad(planklay, pads)
-        if resident:
-            planck_arrays = [play_a,
-                             jnp.pad(planklev, ((0, Lp - L), (0, 0),
-                                                (0, Bp - B)))]
-        else:
-            planck_arrays = [play_a, jnp.pad(planklev[:-1], pads),
-                             jnp.pad(planklev[1:], pads)]
-    else:
-        play_a = _prep(planklay, Lp, G_pad, Bp, "lbb")
-        if resident:
-            planck_arrays = [play_a,
-                             _prep(planklev, Lp + 1, G_pad, Bp, "lbb")]
-        else:
-            planck_arrays = [
-                play_a, _prep(planklev[:, :-1, :], Lp, G_pad, Bp, "lbb"),
-                _prep(planklev[:, 1:, :], Lp, G_pad, Bp, "lbb")]
-    arrays = [
-        taut if blocked else _prep(taut, Lp, G_pad, Bp, spec_dims),
-        fracs if blocked else _prep(fracs, Lp, G_pad, Bp, spec_dims),
-    ] + planck_arrays + [
-        surf,
-    ]
-    if with_taua:
-        arrays.append(_prep(taua, Lp, G_pad, Bp, "lbb"))
-    fused = cloud_fields is not None
+        gate = cldf_g >= thresh
+        cly = jnp.any(gate, axis=-1)                              # (B, L)
+        # cloud anywhere at or above the layer (reverse cumulative OR)
+        icl = jnp.flip(jnp.cumsum(jnp.flip(cly.astype(jnp.int32), 1), 1),
+                       1) > 0
+        ins += [cldf_g, odcld_g]
+    if Bp != B:
+        ins = [jnp.pad(x, ((0, Bp - B),) + ((0, 0),) * (x.ndim - 1),
+                       mode="edge") for x in ins]
+    ins = [x.astype(f32) for x in ins]
+    consts = [jnp.asarray(np.pad(ngb0, (0, n_gb * bg - G)), jnp.int32),
+              jnp.asarray(np.pad(wg, (0, n_gb * bg - G)), f32)]
+    ins = ins[:8] + consts + ins[8:]
     if cloudy:
-        if banded or maxrand:
-            # deterministic per-band clouds: per-layer rows
-            # ([cldfrac] banded; [cldfrac, istcld, istcldd, iclddn,
-            # 6x down + 6x up overlap factors] maxrand) + per-band
-            # cloud od (Lp, 16, Bp)
-            cl8_t, taucb_t = cloud_fields
-            nrow = 16 if maxrand else 8
-            if cl8_t.shape != (Lp, nrow, Bp):
-                raise ValueError("banded/maxrand cloud rows must be "
-                                 f"(Lp, {nrow}, Bp)")
-            arrays += [cl8_t, taucb_t]
-        elif compact:
-            # generator-form clouds: binary mask (Lp, G_pad, Bp) +
-            # per-layer water paths packed as (Lp, 8, Bp) rows
-            # [ciwp, clwp, 0...] + per-band ice/liq coeffs
-            cldf_t, cw_t, abi_t, abl_t = cloud_fields
-            if cldf_t.shape != (Lp, G_pad, Bp):
-                raise ValueError("compact cloud mask must be blocked "
-                                 "(Lp, G_pad, Bp)")
-            arrays += [cldf_t, cw_t, abi_t, abl_t]
-        elif fused:
-            # (cldfmc, ciwpmc, clwpmc, taucmc) (Lp, G_pad, Bp) +
-            # per-band ice/liq coeffs (Lp, 16, Bp): cldprmc runs
-            # inside the kernel
-            cldf_t, ciwp_t, clwp_t, tauc_t, abi_t, abl_t = cloud_fields
-            if cldf_t.shape != (Lp, G_pad, Bp):
-                raise ValueError("fused cloud fields must be blocked "
-                                 "(Lp, G_pad, Bp)")
-            arrays += [cldf_t, ciwp_t, clwp_t, tauc_t, abi_t, abl_t]
-        elif clouds_blocked:
-            arrays.append(cldf_g)
-            arrays.append(odcld_g)
-        else:
-            arrays.append(_prep(cldf_g, Lp, G_pad, Bp))
-            arrays.append(_prep(odcld_g, Lp, G_pad, Bp))
-
-    run = _build_kernel(L, Lp, Lc, G, G_pad, tile, L1p, bool(cloudy),
-                        bool(idrv), with_taua, float(gate_thresh),
-                        tuple(int(v) for v in ngb0),
-                        tuple(float(v) for v in delwave),
-                        bool(resident), bool(cache), bool(fused),
-                        bool(compact), bool(banded), bool(maxrand),
-                        bool(interpret))
-    out = run(Bp, *arrays)                           # (NOUT, L1p, Bp)
-    out = jnp.moveaxis(out[:, :L + 1, :B], 2, 1)     # (NOUT, B, L+1)
-    return tuple(out[i] for i in range(out.shape[0]))
+        def lb(x):                                        # (B, L) -> (L, Bp)
+            return jnp.pad(x.astype(jnp.int32).T, ((0, 0), (0, Bp - B)))
+        ins += [lb(cly), lb(icl)]
+    n_out = 6 if idrv else 4
+    kernel = functools.partial(
+        _sweep_kernel, L=L, G=G, bb=bb, bg=bg, cloudy=cloudy, idrv=idrv,
+        weighted=weighted, thresh=thresh)
+    parts = pl.pallas_call(
+        kernel,
+        out_shape=[jax.ShapeDtypeStruct((n_gb, L + 1, Bp), f32)] * n_out,
+        grid=(Bp // bb, n_gb),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=NUM_STAGES),
+        interpret=interpret,
+        name="rt_sweep",
+    )(*ins)
+    return tuple(p.sum(axis=0)[:, :B].T for p in parts)
 
 
 def rt_random_overlap_pallas(taut, fracs, planklay, planklev, plankbnd,
                              dplankbnd_dt, semiss, pwvcm, pz, cldf_g,
-                             odcld_g, taua=None, *, cloudy, gate_thresh,
-                             static, idrv, heatfac_val, istart=1,
-                             iend=16, native=False, clouds_blocked=False,
-                             planck_blocked=False, cloud_fields=None,
-                             tile=None, interpret=False):
-    """Drop-in for rtrn.rt_random_overlap on TPU/f32/use_lut=False.
+                             odcld_g, *, cloudy, gate_thresh, static, idrv,
+                             heatfac_val, istart=1, iend=16,
+                             odcld_weighted=False, interpret=False):
+    """Drop-in for ``rtrn.rt_random_overlap`` (use_lut=False, f32).
 
-    Forward fluxes come from the Pallas kernel; reverse-mode runs
-    through the (numerically identical) XLA implementation.  With
-    native=True taut/fracs are (G, L, B) straight from the Pallas
-    taumol kernel and taua (B, L, 16) is folded in on the fly.  With
-    planck_blocked, planklay/planklev arrive as (L, 16, B)/(L+1, 16, B)
-    from planck_pallas (plankbnd/dplankbnd stay (B, 16)).
+    ``cloudy=False`` ignores ``cldf_g``/``odcld_g`` (pass None).  With
+    clouds, the per-g gate is ``cldf_g >= gate_thresh`` (0.5 for McICA's
+    binary cldfmc, 1e-6 for banded cldfrac).  Returns ``rtrn.RTOut``.
     """
+    G = taut.shape[-1]
     ngb_full = np.asarray(static["ngb"]) - 1
     gsel = np.nonzero((ngb_full >= istart - 1) & (ngb_full <= iend - 1))[0]
+    if len(gsel) != G:
+        raise ValueError("taut g-dim must match selected bands")
     ngb0 = ngb_full[gsel]
-    delwave = np.asarray(static["delwave"])
-    blocked = native == "blocked"
-    if blocked:
-        if taut.shape[1] != -(-len(ngb0) // 8) * 8:
-            raise ValueError("blocked taut g-pad must match bands")
-    else:
-        G = taut.shape[0] if native else taut.shape[-1]
-        if len(ngb0) != G:
-            raise ValueError("taut g-dim must match selected bands")
+    wg = (WTDIFF * FLUXFAC
+          * np.asarray(static["delwave"])[ngb0]).astype(np.float32)
 
-    fused = cloud_fields is not None
-    flux_kw = dict(gate_thresh=gate_thresh, ngb0=ngb0, delwave=delwave,
-                   cloudy=cloudy, idrv=idrv, native=native,
-                   clouds_blocked=clouds_blocked,
-                   planck_blocked=planck_blocked, tile=tile,
-                   interpret=interpret)
-
-    @jax.custom_vjp
-    def fluxes(taut, fracs, planklay, planklev, plankbnd, dplankbnd_dt,
-               semiss, pwvcm, pz, cldf_g, odcld_g, taua, cloud_fields):
-        return rt_fluxes_pallas(taut, fracs, planklay, planklev,
-                                plankbnd, dplankbnd_dt, semiss, pwvcm,
-                                cldf_g, odcld_g, taua,
-                                cloud_fields=cloud_fields, **flux_kw)
-
-    def fluxes_xla(taut, fracs, planklay, planklev, plankbnd,
-                   dplankbnd_dt, semiss, pwvcm, pz, cldf_g, odcld_g,
-                   taua, cloud_fields):
-        B = pwvcm.shape[0]
-        if fused and len(cloud_fields) == 2:
-            # banded: broadcast cldfrac over g, expand per-band od
-            cl8_t, taucb_t = cloud_fields
-            cldf_g = jnp.broadcast_to(
-                jnp.transpose(cl8_t[:, 0, :B], (1, 0))[:, :, None],
-                (B, cl8_t.shape[0], len(ngb0)))
-            odcld_g = jnp.transpose(taucb_t[:, :, :B],
-                                    (2, 0, 1))[..., ngb0]
-        elif fused and len(cloud_fields) == 4:
-            # compact: materialize the per-g products first
-            cldf_t, cw_t, abi_t, abl_t = cloud_fields
-            ciwp_t = cw_t[:, 0:1, :] * cldf_t
-            clwp_t = cw_t[:, 1:2, :] * cldf_t
-            tauc_t = jnp.zeros_like(cldf_t)
-            cloud_fields = (cldf_t, ciwp_t, clwp_t, tauc_t,
-                            abi_t, abl_t)
-        if fused and len(cloud_fields) == 6:
-            # reconstruct (B, L, G) cldf/odcld with the cldprmc math
-            # (identical f32 ops to the in-kernel fused path)
-            cldf_t, ciwp_t, clwp_t, tauc_t, abi_t, abl_t = cloud_fields
-            tb = lambda x: jnp.transpose(x[:, :len(ngb0), :B],
-                                         (2, 0, 1))
-            cldf_g = tb(cldf_t)
-            ciwp = tb(ciwp_t)
-            clwp = tb(clwp_t)
-            tauc = tb(tauc_t)
-            absc_i = jnp.transpose(abi_t[:, :, :B], (2, 0, 1))[..., ngb0]
-            absc_l = jnp.transpose(abl_t[:, :, :B], (2, 0, 1))[..., ngb0]
-            absc_i = jnp.where(ciwp == 0.0, 0.0, absc_i)
-            absc_l = jnp.where(clwp == 0.0, 0.0, absc_l)
-            cwp = ciwp + clwp
-            active = (cldf_g >= CLDMIN) & (
-                (cwp >= CLDMIN) | (tauc >= CLDMIN))
-            odcld_g = jnp.where(
-                active, ciwp * absc_i + clwp * absc_l, tauc)
-        if blocked:
-            taut = spec_load_taut(
-                jnp.transpose(taut[:, :len(ngb0), :B], (2, 0, 1)))
-            fracs = spec_load_frac(
-                jnp.transpose(fracs[:, :len(ngb0), :B], (2, 0, 1)))
-        elif native:
-            taut = jnp.transpose(taut, (2, 1, 0))
-            fracs = jnp.transpose(fracs, (2, 1, 0))
-        if clouds_blocked and cloudy and not fused:
-            cldf_g = jnp.transpose(cldf_g[:, :len(ngb0), :B], (2, 0, 1))
-            odcld_g = jnp.transpose(odcld_g[:, :len(ngb0), :B],
-                                    (2, 0, 1))
-        if planck_blocked:
-            planklay = jnp.transpose(planklay[:, :, :B], (2, 0, 1))
-            planklev = jnp.transpose(planklev[:, :, :B], (2, 0, 1))
-        if taua is not None:
-            taut = taut + taua[..., ngb0]
-        gate = cldf_g >= gate_thresh if cloudy \
-            else jnp.zeros(taut.shape, bool)
-        cly = jnp.any(gate, axis=-1)
-        out = rt_xla.rt_random_overlap(
-            taut, fracs, planklay, planklev, plankbnd, dplankbnd_dt,
-            semiss, pwvcm, pz, cldf_g, odcld_g, cloudy_lay=cly,
-            cld_gate=gate, static=static, luts=None, use_lut=False,
-            idrv=idrv, heatfac_val=heatfac_val, istart=istart, iend=iend)
-        res = (out.totuflux, out.totdflux, out.totuclfl, out.totdclfl)
-        if idrv:
-            res = res + (out.dtotuflux_dt, out.dtotuclfl_dt)
-        return res
-
-    def fwd(*args):
-        return fluxes(*args), args
-
-    def bwd(args, ct):
-        B_, Lp1 = args[8].shape
-        # Preferred: the unrolled column-chunked backward (no
-        # scan-transpose — see rtrn_bwd.py); covers the production
-        # training configuration.  RRTMG_RT_BWD=xla forces the
-        # scan-based chunked path (A/B + fallback).
-        from .rtrn_bwd import rt_bwd_fluxes, rt_bwd_supported
-        if os.environ.get("RRTMG_RT_BWD", "unrolled") != "xla" and \
-                rt_bwd_supported(
-                    native="blocked" if blocked else native,
-                    cloudy=cloudy, fused=fused,
-                    n_cloud_fields=(0 if args[12] is None
-                                    else len(args[12])),
-                    idrv=idrv, planck_blocked=planck_blocked,
-                    B=B_, spec_dtype=args[0].dtype):
-            return rt_bwd_fluxes(args, ct, static=static,
-                                 gate_thresh=gate_thresh,
-                                 istart=istart, iend=iend,
-                                 interpret=interpret)
-        # column-chunked vjp of the XLA twin (ops/_vjp_chunk.py): RT is
-        # exactly per-column, and the whole-batch scan residuals are
-        # what OOM'd the grad step at B>=8192 (VERDICT r4 #1)
-        from ._vjp_chunk import chunkable, chunked_vjp, pick_nchunk
-        ax_tf = 2 if (blocked or native) else 0
-        ax_pl = 2 if planck_blocked else 0
-        ax_cld = 2 if clouds_blocked else 0
-        axes = (ax_tf, ax_tf, ax_pl, ax_pl, 0, 0, 0, 0, 0,
-                None if args[9] is None else ax_cld,
-                None if args[10] is None else ax_cld,
-                None if args[11] is None else 0,
-                None if args[12] is None
-                else tuple(2 for _ in args[12]))
-        ct_axes = tuple(0 for _ in ct)
-        nch = pick_nchunk(B_, Lp1 - 1)
-        if nch > 1 and not (chunkable(args, axes, B_)
-                            and chunkable(ct, ct_axes, B_)):
-            nch = 1
-        return chunked_vjp(fluxes_xla, args, ct, axes, ct_axes, nch)
-
-    fluxes.defvjp(fwd, bwd)
-
-    res = fluxes(taut, fracs, planklay, planklev, plankbnd,
-                 dplankbnd_dt, semiss, pwvcm, pz, cldf_g, odcld_g, taua,
-                 cloud_fields)
-    totuflux, totdflux, totuclfl, totdclfl = res[:4]
-
-    fnet = totuflux - totdflux
-    fnetc = totuclfl - totdclfl
-    dp = pz[:, :-1] - pz[:, 1:]
-    htr = heatfac_val * (fnet[:, :-1] - fnet[:, 1:]) / dp
-    htrc = heatfac_val * (fnetc[:, :-1] - fnetc[:, 1:]) / dp
-    if idrv:
-        return rt_xla.RTOut(totuflux, totdflux, htr, totuclfl, totdclfl,
-                            htrc, res[4], res[5])
-    return rt_xla.RTOut(totuflux, totdflux, htr, totuclfl, totdclfl,
-                        htrc)
-
-
-def default_tile(B):
-    """Launch column tile for the sweep kernel: 256 when it divides B
-    (AB_MATRIX winner on v5e — ~5% clear / ~7% cloudy over 128 at
-    B=16k), else 128 (padded for non-blocked layouts, required
-    divisor for blocked).  RRTMG_RT_TILE still overrides at trace
-    time."""
-    return 256 if B % 256 == 0 else 128
-
-
-def resolve_tile(B):
-    """The column tile the launch will actually use: default_tile(B)
-    with the RRTMG_RT_TILE env override applied.  The one place the
-    override is resolved — model-level VMEM gates (maxrand_supported)
-    and the kernel launch must agree on the tile or the gate checks a
-    different budget than the launch consumes."""
-    return int(os.environ.get("RRTMG_RT_TILE", default_tile(B)))
-
-
-def maxrand_supported(L, G, tile=128, idrv=0):
-    """True when the Pallas rtrnmr path's VMEM budget holds (same
-    _vmem_plan as rt_fluxes_pallas; the max-random recursion requires
-    the level-cache layout — resident or chunked-input cache-only).
-    Pass tile=default_tile(B) to match what the launch will use."""
-    Lc = min(12, L)
-    Lc = next(d for d in range(Lc, 0, -1) if L % d == 0)
-    _, cache = _vmem_plan(L, Lc, _pad_to(G, 8), tile, cloudy=True,
-                          n_gres=2, n_bres=3 + 1 + 2)
-    return cache
-
-
-def rt_maxrandom_pallas(taut, fracs, planklay, planklev, plankbnd,
-                        dplankbnd_dt, semiss, pwvcm, pz, cldfrac,
-                        taucb_t, taua=None, *, static, idrv,
-                        heatfac_val, istart=1, iend=16,
-                        planck_blocked=False, tile=None,
-                        interpret=False):
-    """Pallas maximum-random overlap RT (rtrnmr.f90) for the blocked
-    layout: taut/fracs (L, G_pad, B) from the taumol kernel, per-band
-    cloud od taucb_t (L, 16, B) from cldprop_banded_blocked, cldfrac
-    (B, L).  The per-column overlap-factor pre-passes
-    (rtrnmr.f90:347-506) run in XLA (they are (B, L)-sized scans) and
-    ship to the kernel as 16 per-layer rows; the cloudy/clear
-    sub-stream radiance recursion runs in the fused sweep kernel.
-
-    Reverse mode differentiates the XLA rt_maxrandom (identical math
-    at f32)."""
-    from . import rtrnmr as rtmr
-
-    ngb_full = np.asarray(static["ngb"]) - 1
-    gsel = np.nonzero((ngb_full >= istart - 1)
-                      & (ngb_full <= iend - 1))[0]
-    ngb0 = ngb_full[gsel]
-    delwave = np.asarray(static["delwave"])
-    B, L = cldfrac.shape
-    dtype = (jnp.float32 if taut.dtype == jnp.uint16
-             else taut.dtype)   # logu16 storage decodes to f32
-
-    def rows16(cldfrac):
-        cloudy_lay = cldfrac >= 1.0e-6
-        up_facs, istcld = rtmr._overlap_factors_up(cldfrac, cloudy_lay)
-        dn_facs, istcldd = rtmr._overlap_factors_down(cldfrac,
-                                                      cloudy_lay)
-        iclddn = jnp.flip(jnp.cumsum(jnp.flip(
-            cloudy_lay.astype(jnp.int32), axis=1), axis=1), axis=1) > 0
-        rows = ([cldfrac, istcld.astype(dtype), istcldd.astype(dtype),
-                 iclddn.astype(dtype)]
-                + [f.astype(dtype) for f in dn_facs]
-                + [f.astype(dtype) for f in up_facs])
-        return jnp.stack([r.T for r in rows], axis=1)   # (L, 16, B)
-
-    flux_kw = dict(gate_thresh=1.0e-6, ngb0=ngb0, delwave=delwave,
-                   cloudy=True, idrv=idrv, native="blocked",
-                   clouds_blocked=False, planck_blocked=planck_blocked,
-                   tile=tile, interpret=interpret)
-
-    @jax.custom_vjp
-    def fluxes(taut, fracs, planklay, planklev, plankbnd,
-               dplankbnd_dt, semiss, pwvcm, pz, cldfrac, taucb_t,
-               taua):
-        return rt_fluxes_pallas(
-            taut, fracs, planklay, planklev, plankbnd, dplankbnd_dt,
-            semiss, pwvcm, None, None, taua,
-            cloud_fields=(rows16(cldfrac), taucb_t), **flux_kw)
-
-    def fluxes_xla(taut, fracs, planklay, planklev, plankbnd,
-                   dplankbnd_dt, semiss, pwvcm, pz, cldfrac, taucb_t,
-                   taua):
-        taut_b = spec_load_taut(
-            jnp.transpose(taut[:, :len(ngb0), :B], (2, 0, 1)))
-        fracs_b = spec_load_frac(
-            jnp.transpose(fracs[:, :len(ngb0), :B], (2, 0, 1)))
-        if planck_blocked:
-            planklay = jnp.transpose(planklay[:, :, :B], (2, 0, 1))
-            planklev = jnp.transpose(planklev[:, :, :B], (2, 0, 1))
-        if taua is not None:
-            taut_b = taut_b + taua[..., ngb0]
-        odcld_g = jnp.transpose(taucb_t[:, :, :B], (2, 0, 1))[..., ngb0]
-        out = rtmr.rt_maxrandom(
-            taut_b, fracs_b, planklay, planklev, plankbnd,
-            dplankbnd_dt, semiss, pwvcm, pz, cldfrac, odcld_g,
+    def reference(args):
+        t, f, pl_, pv, bnd, dbnd, sem, pwv, pz_, cf, oc = args
+        if cloudy:
+            gate = cf >= gate_thresh
+        else:
+            cf = oc = jnp.zeros(t.shape, t.dtype)
+            gate = jnp.zeros(t.shape, bool)
+        return rt.rt_random_overlap(
+            t, f, pl_, pv, bnd, dbnd, sem, pwv, pz_, cf, oc,
+            cloudy_lay=jnp.any(gate, axis=-1), cld_gate=gate,
             static=static, luts=None, use_lut=False, idrv=idrv,
-            heatfac_val=heatfac_val, istart=istart, iend=iend)
-        res = (out.totuflux, out.totdflux, out.totuclfl, out.totdclfl)
-        if idrv:
-            res = res + (out.dtotuflux_dt, out.dtotuclfl_dt)
-        return res
+            heatfac_val=heatfac_val, istart=istart, iend=iend,
+            odcld_weighted=odcld_weighted)
 
-    def fwd(*args):
-        return fluxes(*args), args
+    def forward(args):
+        t, f, pl_, pv, bnd, dbnd, sem, pwv, pz_, cf, oc = args
+        fl = _sweep_fluxes(
+            t, f, pl_, pv, bnd, dbnd, sem, pwv, cf, oc, ngb0=ngb0, wg=wg,
+            cloudy=cloudy, thresh=gate_thresh, idrv=idrv,
+            weighted=odcld_weighted, interpret=interpret)
+        up, dn, upc, dnc = fl[:4]
+        dp = pz_[:, :-1] - pz_[:, 1:]
+        fnet = up - dn
+        fnetc = upc - dnc
+        htr = heatfac_val * (fnet[:, :-1] - fnet[:, 1:]) / dp
+        htrc = heatfac_val * (fnetc[:, :-1] - fnetc[:, 1:]) / dp
+        return rt.RTOut(up, dn, htr, upc, dnc, htrc, *fl[4:])
 
-    def bwd(args, ct):
-        # column-chunked vjp (see the random-overlap bwd above).
-        # rt_maxrandom's overlap pre-passes couple only adjacent
-        # LEVELS of one column, never columns — chunking stays exact.
-        from ._vjp_chunk import chunkable, chunked_vjp, pick_nchunk
-        ax_pl = 2 if planck_blocked else 0
-        axes = (2, 2, ax_pl, ax_pl, 0, 0, 0, 0, 0, 0, 2,
-                None if args[11] is None else 0)
-        ct_axes = tuple(0 for _ in ct)
-        nch = pick_nchunk(B, L)
-        if nch > 1 and not (chunkable(args, axes, B)
-                            and chunkable(ct, ct_axes, B)):
-            nch = 1
-        return chunked_vjp(fluxes_xla, args, ct, axes, ct_axes, nch)
+    @jax.custom_vjp
+    def sweep(args):
+        return forward(args)
 
-    fluxes.defvjp(fwd, bwd)
+    def sweep_fwd(args):
+        return forward(args), args
 
-    res = fluxes(taut, fracs, planklay, planklev, plankbnd,
-                 dplankbnd_dt, semiss, pwvcm, pz, cldfrac, taucb_t,
-                 taua)
-    totuflux, totdflux, totuclfl, totdclfl = res[:4]
-    fnet = totuflux - totdflux
-    fnetc = totuclfl - totdclfl
-    dp = pz[:, :-1] - pz[:, 1:]
-    htr = heatfac_val * (fnet[:, :-1] - fnet[:, 1:]) / dp
-    htrc = heatfac_val * (fnetc[:, :-1] - fnetc[:, 1:]) / dp
-    if idrv:
-        return rt_xla.RTOut(totuflux, totdflux, htr, totuclfl,
-                            totdclfl, htrc, res[4], res[5])
-    return rt_xla.RTOut(totuflux, totdflux, htr, totuclfl, totdclfl,
-                        htrc)
+    def sweep_bwd(args, ct):
+        return jax.vjp(reference, args)[1](ct)
+
+    sweep.defvjp(sweep_fwd, sweep_bwd)
+    return sweep((taut, fracs, planklay, planklev, plankbnd, dplankbnd_dt,
+                  semiss, pwvcm, pz, cldf_g, odcld_g))

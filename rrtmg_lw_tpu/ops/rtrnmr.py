@@ -1,6 +1,6 @@
 """Maximum-random cloud-overlap radiative transfer.
 
-TPU re-design of ``rtrnmr`` (rrtmg_lw_rtrnmr.f90:51-806).  Two per-column
+Batched re-design of ``rtrnmr`` (rrtmg_lw_rtrnmr.f90:51-806).  Two per-column
 pre-passes compute the clear/cloud overlap transfer factors between
 adjacent layers in each sweep direction (:347-428 up, :430-506 down),
 carrying the (rat1, rat2) state across contiguous cloudy blocks; the
@@ -23,7 +23,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .rtrn import RTOut, _band_weights, precompute
+from .rtrn import RTOut, _band_weights, band_flux, precompute
 
 
 def _safe_div(a, b):
@@ -317,7 +317,7 @@ def rt_maxrandom(taut, fracs, planklay, planklev, plankbnd,
     wg = _band_weights(static["delwave"], ngb0, dtype)
 
     def flux(x):
-        return jnp.moveaxis(jnp.einsum("lbg,g->lb", x, wg), 0, 1)
+        return band_flux(x, wg)
 
     totuflux = flux(urad)
     totdflux = flux(dradf)

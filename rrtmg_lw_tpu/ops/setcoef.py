@@ -10,50 +10,11 @@ Index arrays returned are 0-based.
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 from ..types import Profile, SetcoefOut
 
 STPFAC = 296.0 / 1013.0
-
-
-def _use_onehot(dtype):
-    """XLA:TPU lowers (B,L)-indexed row gathers to layout-converting
-    scatter/gather loops that dominate setcoef; a weighted one-hot
-    matmul on the MXU is ~10x faster and numerically equivalent at f32
-    (two-term interpolation evaluated in one f32 contraction).  The f64
-    (golden/CPU) path keeps exact take() semantics."""
-    return dtype == jnp.float32 and jax.default_backend() == "tpu"
-
-
-def _interp_rows_onehot(table, ind, frac):
-    """lo/hi row interpolation as one weighted (C, N) @ (N, K) matmul.
-
-    ind is the 1-based hi index: result = (1-frac)*tbl[ind-1] + frac*tbl[ind].
-    """
-    shape = ind.shape
-    n = table.shape[0]
-    iv = ind.reshape(-1)
-    fv = frac.reshape(-1).astype(table.dtype)
-    iota = jax.lax.broadcasted_iota(jnp.int32, (iv.shape[0], n), 1)
-    W = jnp.where(iota == (iv - 1)[:, None], (1.0 - fv)[:, None],
-                  jnp.where(iota == iv[:, None], fv[:, None], 0.0))
-    out = jnp.dot(W, table, preferred_element_type=table.dtype,
-                  precision=jax.lax.Precision.HIGHEST)
-    return out.reshape(*shape, table.shape[1])
-
-
-def _select_rows_onehot(table, ind0):
-    """Exact row selection tbl[ind0] (0-based) via one-hot matmul."""
-    shape = ind0.shape
-    n = table.shape[0]
-    iv = ind0.reshape(-1)
-    iota = jax.lax.broadcasted_iota(jnp.int32, (iv.shape[0], n), 1)
-    W = jnp.where(iota == iv[:, None], jnp.asarray(1.0, table.dtype), 0.0)
-    out = jnp.dot(W, table, preferred_element_type=table.dtype,
-                  precision=jax.lax.Precision.HIGHEST)
-    return out.reshape(*shape, table.shape[1])
 
 
 def _trunc_int(x):
@@ -106,12 +67,8 @@ def setcoef(prof: Profile, static: dict, *, istart: int = 1,
     indlay, fraclay = _planck_index(tavel)              # (B, L)
     indlev, fraclev = _planck_index(tz)                 # (B, L+1)
 
-    if _use_onehot(dtype):
-        planklay = _interp_rows_onehot(totplnk, indlay, fraclay)
-        planklev = _interp_rows_onehot(totplnk, indlev, fraclev)
-    else:
-        planklay = _interp_planck(totplnk, indlay, fraclay)  # (B, L, 16)
-        planklev = _interp_planck(totplnk, indlev, fraclev)  # (B, L+1, 16)
+    planklay = _interp_planck(totplnk, indlay, fraclay)  # (B, L, 16)
+    planklev = _interp_planck(totplnk, indlev, fraclev)  # (B, L+1, 16)
     plankbnd = prof.semiss * _interp_planck(totplnk, indb, fracb)
     dplankbnd = prof.semiss * _interp_planck(totplnkd, indb, fracb)
 
@@ -136,21 +93,9 @@ def setcoef(prof: Profile, static: dict, *, istart: int = 1,
     plog = jnp.log(pavel)
     jp = jnp.clip(_trunc_int(36.0 - 5.0 * (plog + 0.04)), 1, 58)   # 1-based
 
-    onehot = _use_onehot(dtype)
-    if onehot:
-        # one fused row-selection for preflog/tref/chi at jp-1 and jp
-        packed = jnp.stack([preflog, tref, chi[0], chi[1], chi[2],
-                            chi[3], chi[5], jnp.zeros_like(preflog)],
-                           axis=1)                       # (59, 8)
-        S0 = _select_rows_onehot(packed, jp - 1)         # (B, L, 8)
-        S1 = _select_rows_onehot(packed, jp)
-        preflog_jp = S0[..., 0]
-        tref_jp = S0[..., 1]
-        tref_jp1 = S1[..., 1]
-    else:
-        preflog_jp = jnp.take(preflog, jp - 1)
-        tref_jp = jnp.take(tref, jp - 1)
-        tref_jp1 = jnp.take(tref, jp)
+    preflog_jp = jnp.take(preflog, jp - 1)
+    tref_jp = jnp.take(tref, jp - 1)
+    tref_jp1 = jnp.take(tref, jp)
     fp = 5.0 * (preflog_jp - plog)
     jt = jnp.clip(_trunc_int(3.0 + (tavel - tref_jp) / 15.0), 1, 4)
     ft = (tavel - tref_jp) / 15.0 - (jt - 3).astype(dtype)
@@ -181,12 +126,7 @@ def setcoef(prof: Profile, static: dict, *, istart: int = 1,
     minorfrac = fminor - indminor.astype(dtype)
 
     # reference-atmosphere mixing-ratio ratios at jp, jp+1 (1-based)
-    _chi_col = {1: 2, 2: 3, 3: 4, 4: 5, 6: 6}   # gas -> packed column
-
     def rat(g1, g2):
-        if onehot:
-            c1, c2 = _chi_col[g1], _chi_col[g2]
-            return S0[..., c1] / S0[..., c2], S1[..., c1] / S1[..., c2]
         a = jnp.take(chi[g1 - 1], jp - 1) / jnp.take(chi[g2 - 1], jp - 1)
         b = jnp.take(chi[g1 - 1], jp) / jnp.take(chi[g2 - 1], jp)
         return a, b

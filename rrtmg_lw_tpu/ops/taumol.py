@@ -1,6 +1,6 @@
 """Gaseous optical depth and Planck fractions for the 16 LW bands.
 
-TPU-first re-design of ``taumol`` (rrtmg_lw_taumol.f90:299-3164).  The
+Batched re-design of ``taumol`` (rrtmg_lw_taumol.f90:299-3164).  The
 reference implements 16 near-identical band subroutines with serial layer
 loops split at ``laytrop``; here every band is described *declaratively*
 (key species, minor-gas terms, CFC terms, empirical adjustments, Planck

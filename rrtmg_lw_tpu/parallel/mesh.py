@@ -2,7 +2,7 @@
 
 The reference processes columns in a serial loop
 (``rrtmg_lw_rad.f90:486``) with no parallelism of any kind (SURVEY §2.4).
-The TPU design shards the *column batch* (pure data parallelism — the
+The design shards the *column batch* (pure data parallelism — the
 physics is fully independent per column) and optionally the *spectral
 g-point axis* (a model-parallel-like split: each device computes a slice
 of the 140 g-points and the band-weighted flux sum becomes a psum over
@@ -10,8 +10,8 @@ the ``spec`` axis, inserted automatically by GSPMD from the sharding
 constraint).
 
 Axes:
-  columns — batch data parallelism (ICI+DCN; embarrassingly parallel)
-  spec    — spectral partition of the g-point axis (ICI only)
+  columns — batch data parallelism (embarrassingly parallel)
+  spec    — spectral partition of the g-point axis
 """
 
 from __future__ import annotations
@@ -92,7 +92,7 @@ def global_batch_from_host_shards(mesh: Mesh, per_host_arrays):
     """Multi-host entry: assemble a jax.Array from per-host shards.
 
     Each host passes the column shard it loaded; the result is a global
-    array sharded over the ``columns`` axis (DCN boundary handled by the
+    array sharded over the ``columns`` axis (host boundary handled by the
     JAX runtime).  Layout aware like shard_batch: blocked/compact cloud
     arrays concatenate hosts along their LAST (column) axis, batch-first
     leaves along axis 0.  Single-host fallback: equivalent to

@@ -5,7 +5,7 @@ needs is *metric* reduction — flux error norms for validation and
 throughput counters — as the computation itself is embarrassingly
 parallel over columns.  These helpers reduce column-sharded ``Fluxes``
 to replicated scalars inside jit; GSPMD turns the reductions into
-``psum``/``pmax`` collectives riding ICI (DCN across hosts).
+``psum``/``pmax`` collectives (NCCL across cards).
 
 The accuracy norms mirror the reference's regression contract
 (README.md:19 via SURVEY §4): max-abs flux difference in W/m² and
@@ -56,7 +56,7 @@ def flux_error_norms(fl, ref):
 
 def make_metrics_fn(mesh, with_reference: bool = False):
     """jit-compiled mesh-global metrics: sharded Fluxes in, replicated
-    scalars out (the reductions lower to ICI/DCN collectives)."""
+    scalars out (the reductions lower to collectives)."""
     rep = replicated(mesh)
 
     if with_reference:

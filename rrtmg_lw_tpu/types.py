@@ -1,6 +1,6 @@
-"""Pytree types for the TPU LW radiation framework.
+"""Pytree types for the batched LW radiation framework.
 
-Batched layout conventions (TPU-first):
+Batched layout conventions:
   * leading axis = columns (the batch / sharded axis),
   * then layers (bottom -> top, matching the reference's vertical indexing,
     rrtmg_lw_rad.f90:785-795),
@@ -72,19 +72,15 @@ class McicaClouds(NamedTuple):
     relqmc: jnp.ndarray        # (B, L)
 
 
-NGPT_PAD = 144             # NGPT padded to a sublane multiple
+NGPT_PAD = 144             # NGPT padded to a multiple of 8
 
 
 class McicaCloudsBlocked(NamedTuple):
-    """McicaClouds with the per-g-point arrays pre-transposed to the
-    Pallas pipeline's native padded (L, NGPT_PAD, B) layout (columns in
-    the 128-lane dimension, g zero-padded 140->144 so the arrays stream
-    straight into the RT sweep kernel).  Producing clouds directly in
-    this layout (e.g. utils.synthetic.make_mcica_clouds(
-    layout="blocked"), or a host pipeline that stores sub-columns
-    g-major like the reference's cldfmcl(ngptlw, ncol, nlay) —
-    rrtmg_lw_rad.f90:117) lets the McICA path skip two full-size
-    relayout passes and two pad passes per step."""
+    """McicaClouds with the per-g-point arrays in a g-major, column-last
+    (L, NGPT_PAD, B) layout (g zero-padded 140->144), the layout of a
+    host pipeline that stores sub-columns g-major like the reference's
+    cldfmcl(ngptlw, ncol, nlay) (rrtmg_lw_rad.f90:117).  The model
+    relayouts it to (B, L, NGPT) with ``to_batch``."""
     cldfmc: jnp.ndarray        # (L, NGPT_PAD, B) 0/1 cloud fraction
     ciwpmc: jnp.ndarray        # (L, NGPT_PAD, B) in-cloud ice water path
     clwpmc: jnp.ndarray        # (L, NGPT_PAD, B)
@@ -105,9 +101,9 @@ class McicaCloudsCompact(NamedTuple):
     resolution plus per-layer water paths.  The stochastic generator
     constructs ciwpmcl/clwpmcl exactly as ``per-layer value x binary
     mask`` (mcica_subcol_gen_lw.f90:655-668), so carrying the factors
-    instead of the products is numerically identical (the f32 product
-    is re-formed inside the RT kernel) at ~1/4 the HBM traffic of
-    McicaCloudsBlocked.  Valid for the inflag=2 parameterized-optics
+    instead of the products is numerically identical at ~1/4 the
+    bytes of McicaCloudsBlocked (it is the streaming wire's cloud
+    form, parallel/wire.py).  Valid for the inflag=2 parameterized-optics
     path (ice/liquid water paths; per-g taucmc is identically zero
     there — rrtmg_lw_cldprmc.f90:128-142)."""
     cldfmc: jnp.ndarray        # (L, NGPT_PAD, B) 0/1 mask (f32 or int8)
@@ -116,13 +112,13 @@ class McicaCloudsCompact(NamedTuple):
     reicmc: jnp.ndarray        # (B, L)
     relqmc: jnp.ndarray        # (B, L)
 
-    def to_blocked(self) -> "McicaCloudsBlocked":
-        """Materialize the per-g products (for non-fused paths)."""
-        m = self.cldfmc.astype(self.ciwp.dtype)
-        ci = jnp.transpose(self.ciwp, (1, 0))[:, None, :] * m
-        cl = jnp.transpose(self.clwp, (1, 0))[:, None, :] * m
-        return McicaCloudsBlocked(m, ci, cl, jnp.zeros_like(m),
-                                  self.reicmc, self.relqmc)
+    def to_batch(self) -> "McicaClouds":
+        """Form the per-g products in the (B, L, NGPT) batch layout."""
+        m = jnp.transpose(self.cldfmc[:, :NGPT, :], (2, 0, 1)).astype(
+            self.ciwp.dtype)
+        return McicaClouds(m, self.ciwp[..., None] * m,
+                           self.clwp[..., None] * m, jnp.zeros_like(m),
+                           self.reicmc, self.relqmc)
 
 
 class BandClouds(NamedTuple):
@@ -200,11 +196,6 @@ class Fluxes(NamedTuple):
     # (rrtmg_lw_cldprmc.f90:204-253); a jitted batched kernel cannot,
     # so the flag is surfaced for post-hoc checking.
     cld_bounds_ok: Optional[jnp.ndarray] = None  # (B, L) bool
-    # per-column bool (B,): False where the blocked taumol kernel's
-    # 64-row pressure-window selection edge-clamped (a batch mixing
-    # vertical grids so one layer's jp spread exceeds the window —
-    # physically absurd inputs, but silently wrong if unchecked)
-    window_ok: Optional[jnp.ndarray] = None
     # per-column bool (B,): False where the streaming wire decode
     # (parallel/wire.py, sanitize=True) replaced corrupted inputs —
     # non-finite references/ranges or physically impossible decoded

@@ -3,7 +3,7 @@
 Direct numerical integration of the Planck function from CODATA
 constants — independent of the framework's totplnk tables, Planck
 fractions, and of the tests/oracle transcription.  Used by
-tests/test_invariants.py and tools/tpu_verify.py to pin the
+tests/test_invariants.py to pin the
 isothermal-enclosure fixed point of the RT recursion
 (rrtmg_lw_rtrnmc.f90:486-529) to physics.
 """

@@ -2,7 +2,7 @@
 
 The reference's only instrumentation is an unused CPU timer
 (aer_rt_utils/util_gfortran.f90:169 ``CPUTIM``) and version strings
-written to the output footer (rrlw_vsn.f90).  The TPU framework's
+written to the output footer (rrlw_vsn.f90).  This framework's
 equivalents (SURVEY §5):
 
   * ``ThroughputMeter`` — columns/sec accounting for production serving

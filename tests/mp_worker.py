@@ -2,7 +2,7 @@
 
 Each process owns 4 virtual CPU devices; together they form an
 8-device (columns, spec) mesh spanning a process boundary — the
-closest approximation of multi-host DCN this sandbox allows.  The
+closest approximation of a multi-host mesh on one machine.  The
 worker builds its host-local column shard, assembles the global batch
 (``global_batch_from_host_shards``), runs the jitted sharded step and
 the mesh-global metrics collectives (Gloo across processes), and dumps

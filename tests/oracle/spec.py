@@ -3,7 +3,7 @@
 A *literal* per-column, per-layer transcription of the reference
 algorithms (rrtmg_lw_setcoef/taumol/rtrn/rtrnmc/rtrnmr/cldprmc), with
 explicit if/else branches and Fortran 1-based index arithmetic mapped
-one-to-one.  Used only in tests, as the oracle for the vectorized TPU
+one-to-one.  Used only in tests, as the oracle for the vectorized
 implementation: the production code re-architects the computation
 (masks, fused tables, scans); this file does not, so disagreements
 expose vectorization/indexing bugs.

@@ -6,7 +6,7 @@ rtrn end-to-end, and the gradients must be *correct*: checked against
 central finite differences in f64 on the smooth (use_lut=False) path.
 The tabulated (use_lut=True) mode is piecewise-constant in the table
 lookups by construction, so gradient tests use the direct-exp mode —
-the same scheme the TPU Pallas kernels use.
+the same scheme the Pallas RT kernel uses.
 """
 
 import numpy as np

@@ -2,8 +2,8 @@
 accuracy contract (fluxes <= 0.5 W/m², heating <= 0.1 K/day,
 README.md:19) relative to the f64 parity path.
 
-Measured on CPU/XLA with the direct-exp scheme (the one the TPU Pallas
-kernels use): ~1e-4 W/m² flux and ~6e-3 K/day heating differences at
+Measured on CPU/XLA with the direct-exp scheme (the one the Pallas RT
+kernel uses): ~1e-4 W/m² flux and ~6e-3 K/day heating differences at
 nlay=60 — the gates below keep two orders of margin on flux.
 """
 
@@ -36,13 +36,10 @@ def test_f32_within_contract(icld):
 
 
 def test_f32_deep_within_contract():
-    """Same contract at production depth (nlay=140, VERDICT r3 weak
-    #3): the deep shapes run through different Pallas VMEM plans and
-    tile shapes than nlay=60, so both the XLA f32 path and the fused
-    Pallas pipeline (interpret mode — the kernels pick the
-    chunked-input/cache-only _vmem_plan at this depth exactly as on
-    silicon) are gated against the f64 run.  Measured: <=2.3e-4 W/m^2
-    flux, <=0.07 K/day heating."""
+    """Same contract at production depth (nlay=140): both the XLA f32
+    path and the Pallas RT sweep (interpret mode) are gated against
+    the f64 run.  Measured: <=2.3e-4 W/m^2 flux, <=0.07 K/day
+    heating."""
     B, L = 128, 140
     out = {}
     for tag, cfg in [
@@ -51,8 +48,7 @@ def test_f32_deep_within_contract():
         ("f32", LWConfig(icld=2, imca=1, dtype="float32",
                          use_lut=False)),
         ("f32_pallas", LWConfig(icld=2, imca=1, dtype="float32",
-                                use_lut=False, taumol_impl="pallas",
-                                rt_impl="pallas",
+                                use_lut=False, rt_impl="pallas",
                                 pallas_interpret=True)),
     ]:
         jdt = jnp.float64 if tag == "f64" else jnp.float32

@@ -1,4 +1,4 @@
-"""The synthetic-generator placement contract (VERDICT r2 #7).
+"""The synthetic-generator placement contract.
 
 Generators return HOST numpy arrays (streaming contract: the input
 pipeline owns device placement via parallel.shard_batch /
@@ -35,7 +35,7 @@ def test_generators_return_host_numpy():
 
 def test_generators_tolerate_tiny_nlay():
     # row indices clip to the top layer instead of raising (the old
-    # slice assignments silently clipped; ADVICE r2)
+    # slice assignments silently clipped)
     make_band_clouds(ncol=4, nlay=6)
     make_mcica_clouds(ncol=4, nlay=6)
 

@@ -79,7 +79,7 @@ def test_golden_nmca200_full_sample_path():
     rrtmg_lw.1col.f90:460-483) end-to-end: every Mersenne-Twister seed
     index 1..200 is drawn in reference order and the 200 flux samples
     are averaged.  nmca=2 CI runs would let a seed-indexing bug at
-    sample > 2 slip through (VERDICT r2 #6).  Values are not gated
+    sample > 2 slip through.  Values are not gated
     (synthetic k-tables); structure + bitwise determinism are."""
     from rrtmg_lw_tpu.cli import run_files
     from rrtmg_lw_tpu.io.golden import parse_output_rrtm

@@ -57,8 +57,7 @@ def test_golden_values_all_14_decks():
 
 def test_golden_gate_fails_on_injected_perturbation(tmp_path):
     """The comparator must actually have teeth: a 1 W/m2 perturbation
-    injected into a golden file makes run_goldens exit nonzero
-    (VERDICT r4 #3 'done' criterion)."""
+    injected into a golden file makes run_goldens exit nonzero."""
     tampered = tmp_path / "goldens"
     tampered.mkdir()
     name = "output_rrtm_MLS-clr-xsec"

@@ -1,6 +1,5 @@
 """Physics-invariant tests for the RT core — value anchors INDEPENDENT
-of the tests/oracle Fortran transcription and of the k-data
-(VERDICT r3, missing #2).
+of the tests/oracle Fortran transcription and of the k-data.
 
 Closed-form limits of longwave radiative transfer:
 
@@ -439,18 +438,17 @@ def test_isothermal_exact_collapse_pallas():
     assert abs(u[:, 0] / anchor - 1).max() < 2e-4
 
 
-PALLAS_CONFIGS = [(0, 1), (2, 1), (2, 0)]   # clear, McICA, maxrand
+PALLAS_CONFIGS = [(0, 1), (2, 1), (1, 0)]   # clear, McICA, banded
 
 
 @pytest.mark.parametrize("icld,imca", PALLAS_CONFIGS)
 @pytest.mark.slow
 def test_isothermal_full_model_pallas(icld, imca):
-    """Full fused Pallas pipeline (taumol + planck + RT kernels,
-    interpret mode, f32): same anchors as the f64 full-model test."""
-    ncol = 256                  # one full column tile
+    """Full model with the Pallas RT sweep (interpret mode, f32): same
+    anchors as the f64 full-model test."""
+    ncol = 64
     cfg = LWConfig(icld=icld, imca=imca, dtype="float32",
-                   use_lut=False, taumol_impl="pallas",
-                   rt_impl="pallas", pallas_interpret=True)
+                   use_lut=False, rt_impl="pallas", pallas_interpret=True)
     model = make_model(cfg)
     atm = isothermal_atmosphere(ncol, 24, T_ISO, jnp.float32)
     if icld == 0:

@@ -81,7 +81,7 @@ def test_kg_and_nc_pack_identically(paths):
 
 
 def test_verify_manifest_accepts_and_rejects(paths, capsys):
-    """tools/build_assets.py --verify-manifest (VERDICT r2 #5): the
+    """tools/build_assets.py --verify-manifest: the
     structural pre-flight must pass both synthetic blob forms and
     fail loudly on a malformed one."""
     import importlib.util

@@ -157,7 +157,7 @@ def test_mesh_global_metrics():
 
 @pytest.mark.slow
 def test_two_process_distributed_mesh(tmp_path):
-    """VERDICT r1 #7: the sharded step + metrics collectives must
+    """The sharded step + metrics collectives must
     survive a process boundary.  Two fresh processes x 4 virtual CPU
     devices form one 8-device (columns, spec=2) mesh over
     jax.distributed (Gloo collectives); each worker feeds its

@@ -1,8 +1,12 @@
-"""Pallas RT sweep kernel vs the XLA implementation (interpret mode).
+"""Pallas (Triton route) RT sweep kernel vs the XLA sweep.
 
-Fluxes must agree to f32 rounding; heating rates are excluded because
-the finite difference across thin top layers amplifies f32 flux noise
-(~1e-4 W/m2 -> ~1e-2 K/day) identically in both directions.
+The kernel runs in the Pallas interpreter here; its Triton lowering is
+checked by lowering for CUDA without a card.  Fluxes must agree to f32
+rounding; heating rates are excluded because the finite difference
+across thin top layers amplifies f32 flux noise identically in both
+directions.  Shapes are chosen so that both the column block (B=40 ->
+two 32-column blocks) and the g-block (140 -> five 32-point blocks)
+need padding.
 """
 
 import jax
@@ -14,23 +18,20 @@ from rrtmg_lw_tpu import LWConfig, make_model
 from rrtmg_lw_tpu.ops import rtrn as rt
 from rrtmg_lw_tpu.ops import rtrn_pallas as rtp
 from rrtmg_lw_tpu.ops.inatm import inatm
-from rrtmg_lw_tpu.ops.setcoef import setcoef
-from rrtmg_lw_tpu.utils.synthetic import make_atmosphere
+from rrtmg_lw_tpu.utils.synthetic import (make_atmosphere,
+                                          make_band_clouds,
+                                          make_mcica_clouds)
 
-pytestmark = pytest.mark.slow  # interpret-mode Pallas (VERDICT r4 #5)
+B, L = 40, 13
+FLUXES = ["totuflux", "totdflux", "totuclfl", "totdclfl"]
 
 
 @pytest.fixture(scope="module")
 def stack():
-    B, L = 8, 43
-    cfg = LWConfig(icld=0, dtype="float32", use_lut=False,
-                   taumol_impl="xla")
-    model = make_model(cfg)
+    model = make_model(LWConfig(icld=0, dtype="float32", use_lut=False))
     atm = make_atmosphere(ncol=B, nlay=L, dtype=jnp.float32)
     prof = inatm(atm, dtype=jnp.float32)
-    sc = setcoef(prof, model.static, istart=1, idrv=1)
-    taug, fracs = model.engine(sc, prof)
-    taut = taug + prof.taua[..., model.ngb0]
+    sc, taut, fracs = model.optical_depth(prof)
     rng = np.random.default_rng(0)
     cldf = (rng.random((B, L, 140)) < 0.3).astype(np.float32)
     odcld = (rng.random((B, L, 140)) * 5).astype(np.float32) * cldf
@@ -38,495 +39,188 @@ def stack():
         jnp.asarray(odcld)
 
 
-@pytest.mark.parametrize("cloudy,idrv", [(False, 0), (True, 0),
-                                         (True, 1)])
-def test_flux_parity(stack, cloudy, idrv):
+def _args(stack, cloudy):
     model, prof, sc, taut, fracs, cldf, odcld = stack
-    kw = dict(static=model.static_np, idrv=idrv,
-              heatfac_val=model.heatfac)
-    gate = (cldf >= 0.5) if cloudy else jnp.zeros(taut.shape, bool)
-    cf = cldf if cloudy else jnp.zeros_like(taut)
-    oc = odcld if cloudy else jnp.zeros_like(taut)
-    ref = rt.rt_random_overlap(
-        taut, fracs, sc.planklay, sc.planklev, sc.plankbnd,
-        sc.dplankbnd_dt, prof.semiss, prof.pwvcm, prof.pz, cf, oc,
-        cloudy_lay=jnp.any(gate, -1), cld_gate=gate, luts=None,
-        use_lut=False, istart=1, iend=16, **kw)
-    out = rtp.rt_random_overlap_pallas(
-        taut, fracs, sc.planklay, sc.planklev, sc.plankbnd,
-        sc.dplankbnd_dt, prof.semiss, prof.pwvcm, prof.pz, cf, oc,
-        cloudy=cloudy, gate_thresh=0.5, interpret=True, **kw)
-    names = ["totuflux", "totdflux", "totuclfl", "totdclfl"]
-    if idrv:
-        names += ["dtotuflux_dt", "dtotuclfl_dt"]
-    for name in names:
-        a = np.asarray(getattr(ref, name))
-        b = np.asarray(getattr(out, name))
-        scale = max(np.abs(a).max(), 1.0)
-        np.testing.assert_allclose(b, a, atol=2e-6 * scale,
-                                   err_msg=name)
-
-
-def test_grad_flows_through_custom_vjp(stack):
-    model, prof, sc, taut, fracs, cldf, odcld = stack
-    kw = dict(static=model.static_np, idrv=0,
-              heatfac_val=model.heatfac)
-
-    def loss(t):
-        out = rtp.rt_random_overlap_pallas(
-            t, fracs, sc.planklay, sc.planklev, sc.plankbnd,
+    return (taut, fracs, sc.planklay, sc.planklev, sc.plankbnd,
             sc.dplankbnd_dt, prof.semiss, prof.pwvcm, prof.pz,
-            cldf, odcld, cloudy=True, gate_thresh=0.5, interpret=True,
-            **kw)
-        return jnp.sum(out.totuflux)
-
-    g = jax.grad(loss)(taut)
-    assert np.isfinite(np.asarray(g)).all()
-    assert np.abs(np.asarray(g)).max() > 0
+            cldf if cloudy else None, odcld if cloudy else None)
 
 
-def test_blocked_input_parity(stack):
-    """native='blocked' (taut/fracs pre-padded (L, G_pad, B)) must
-    reproduce the (B, L, G) path exactly."""
-    model, prof, sc, taut, fracs, cldf, odcld = stack
-    kw = dict(static=model.static_np, idrv=0,
-              heatfac_val=model.heatfac)
-    ref = rtp.rt_random_overlap_pallas(
-        taut, fracs, sc.planklay, sc.planklev, sc.plankbnd,
-        sc.dplankbnd_dt, prof.semiss, prof.pwvcm, prof.pz, cldf, odcld,
-        cloudy=True, gate_thresh=0.5, interpret=True, **kw)
-
-    def to_blocked(x):   # (B, L, G) -> (L, G_pad, B)
-        return jnp.pad(jnp.transpose(x, (1, 2, 0)),
-                       ((0, 0), (0, 4), (0, 0)))
-    out = rtp.rt_random_overlap_pallas(
-        to_blocked(taut), to_blocked(fracs), sc.planklay, sc.planklev,
-        sc.plankbnd, sc.dplankbnd_dt, prof.semiss, prof.pwvcm, prof.pz,
-        cldf, odcld, taua=jnp.zeros_like(prof.taua), cloudy=True,
-        gate_thresh=0.5, native="blocked", interpret=True, tile=8, **kw)
-    for name in ("totuflux", "totdflux", "totuclfl", "totdclfl"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(out, name)),
-            np.asarray(getattr(ref, name)), atol=1e-4, err_msg=name)
-
-
-def test_planck_blocked_parity(stack):
-    """planck_blocked ((L,16,B)/(L+1,16,B) Planck inputs, as produced
-    by planck_pallas) must reproduce the (B,L,16) path exactly."""
-    model, prof, sc, taut, fracs, cldf, odcld = stack
-    kw = dict(static=model.static_np, idrv=0,
-              heatfac_val=model.heatfac)
-    ref = rtp.rt_random_overlap_pallas(
-        taut, fracs, sc.planklay, sc.planklev, sc.plankbnd,
-        sc.dplankbnd_dt, prof.semiss, prof.pwvcm, prof.pz, cldf, odcld,
-        cloudy=True, gate_thresh=0.5, interpret=True, **kw)
-    play_t = jnp.transpose(sc.planklay, (1, 2, 0))      # (L, 16, B)
-    plev_t = jnp.transpose(sc.planklev, (1, 2, 0))      # (L+1, 16, B)
-    out = rtp.rt_random_overlap_pallas(
-        taut, fracs, play_t, plev_t, sc.plankbnd,
-        sc.dplankbnd_dt, prof.semiss, prof.pwvcm, prof.pz, cldf, odcld,
-        cloudy=True, gate_thresh=0.5, planck_blocked=True,
-        interpret=True, tile=8, **kw)
-    for name in ("totuflux", "totdflux", "totuclfl", "totdclfl"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(out, name)),
-            np.asarray(getattr(ref, name)), atol=1e-4, err_msg=name)
-
-
-def test_fused_clouds_parity(stack):
-    """cloud_fields (in-kernel cldprmc) must reproduce the separate
-    cldprmc_blocked + clouds_blocked path exactly."""
-    from rrtmg_lw_tpu.ops import cldprop as cld_ops
-    from rrtmg_lw_tpu.utils.synthetic import make_mcica_clouds
-    model, prof, sc, taut, fracs, _, _ = stack
-    B, L = prof.pavel.shape
-    cl_b = make_mcica_clouds(ncol=B, nlay=L, dtype=jnp.float32,
-                             layout="blocked")
-    kw = dict(static=model.static_np, idrv=0,
-              heatfac_val=model.heatfac)
-
-    def to_blocked(x):   # (B, L, G) -> (L, G_pad, B)
-        return jnp.pad(jnp.transpose(x, (1, 2, 0)),
-                       ((0, 0), (0, 4), (0, 0)))
-    taut_b, fracs_b = to_blocked(taut), to_blocked(fracs)
-    taua0 = jnp.zeros_like(prof.taua)
-
-    odcld_t, cldf_t, _ = cld_ops.cldprmc_blocked(
-        cl_b, model.static_np, inflag=2, iceflag=3, liqflag=1)
-    ref = rtp.rt_random_overlap_pallas(
-        taut_b, fracs_b, sc.planklay, sc.planklev, sc.plankbnd,
-        sc.dplankbnd_dt, prof.semiss, prof.pwvcm, prof.pz, cldf_t,
-        odcld_t, taua=taua0, cloudy=True, gate_thresh=0.5,
-        native="blocked", clouds_blocked=True, interpret=True, tile=8,
-        **kw)
-
-    abi_t, abl_t, _ = cld_ops.cloud_optics_bands_blocked(
-        cl_b, model.static_np, iceflag=3, liqflag=1)
-    out = rtp.rt_random_overlap_pallas(
-        taut_b, fracs_b, sc.planklay, sc.planklev, sc.plankbnd,
-        sc.dplankbnd_dt, prof.semiss, prof.pwvcm, prof.pz, None, None,
-        taua=taua0, cloudy=True, gate_thresh=0.5, native="blocked",
-        cloud_fields=(cl_b.cldfmc, cl_b.ciwpmc, cl_b.clwpmc,
-                      cl_b.taucmc, abi_t, abl_t),
-        interpret=True, tile=8, **kw)
-    for name in ("totuflux", "totdflux", "totuclfl", "totdclfl"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(out, name)),
-            np.asarray(getattr(ref, name)), atol=2e-5, err_msg=name)
-
-
-def test_cldprmc_blocked_matches_plain(stack):
-    from rrtmg_lw_tpu.ops import cldprop as cld_ops
-    from rrtmg_lw_tpu.utils.synthetic import make_mcica_clouds
+def _reference(stack, args, cloudy, idrv, thresh=0.5):
     model = stack[0]
-    cl = make_mcica_clouds(ncol=8, nlay=43, dtype=jnp.float32)
-    kw = dict(inflag=2, iceflag=3, liqflag=1)
-    tau, ok = cld_ops.cldprmc(cl, model.static_np, **kw)
-    tau_t, cldf_t, ok_t = cld_ops.cldprmc_blocked(cl, model.static_np,
-                                                  **kw)
-    assert tau_t.shape == (43, 144, 8)
-    # blocked-layout input (McicaCloudsBlocked) must give identical
-    # results with zero relayout
-    cl_b = make_mcica_clouds(ncol=8, nlay=43, dtype=jnp.float32,
-                             layout="blocked")
-    tau_b, cldf_b, ok_b = cld_ops.cldprmc_blocked(cl_b, model.static_np,
-                                                  **kw)
-    np.testing.assert_array_equal(np.asarray(tau_b), np.asarray(tau_t))
-    np.testing.assert_array_equal(np.asarray(cldf_b),
-                                  np.asarray(cldf_t))
-    np.testing.assert_array_equal(np.asarray(ok_b), np.asarray(ok_t))
-    # and round-trip back to batch layout for the non-blocked paths
-    rt = cl_b.to_batch()
-    np.testing.assert_array_equal(np.asarray(rt.cldfmc),
-                                  np.asarray(cl.cldfmc))
-    np.testing.assert_array_equal(np.asarray(ok), np.asarray(ok_t))
-    np.testing.assert_array_equal(
-        np.asarray(tau_t[:, :140]), np.asarray(tau).transpose(1, 2, 0))
-    np.testing.assert_array_equal(
-        np.asarray(cldf_t[:, :140]),
-        np.asarray(cl.cldfmc).transpose(1, 2, 0))
-    assert not np.asarray(tau_t[:, 140:]).any()
-    assert not np.asarray(cldf_t[:, 140:]).any()
+    args = list(args)
+    if not cloudy:
+        args[9] = args[10] = jnp.zeros_like(args[0])
+    gate = (args[9] >= thresh) if cloudy \
+        else jnp.zeros(args[0].shape, bool)
+    return rt.rt_random_overlap(
+        *args, cloudy_lay=jnp.any(gate, -1), cld_gate=gate,
+        static=model.static_np, luts=None, use_lut=False, idrv=idrv,
+        heatfac_val=model.heatfac)
 
 
-@pytest.mark.parametrize("mode", ["resident", "chunked"])
-def test_compact_clouds_parity(stack, mode, monkeypatch):
-    """Generator-form compact clouds (mask + per-layer water paths)
-    must reproduce the fused blocked-cloud path exactly — the
-    in-kernel per-layer x mask product is the same f32 multiply the
-    generator materializes.  In ``chunked`` mode the compact run uses
-    the deep-profile VMEM layout (streamed inputs + level cache) and
-    must still match the resident reference bitwise."""
-    from rrtmg_lw_tpu.ops import cldprop as cld_ops
-    from rrtmg_lw_tpu.utils.synthetic import make_mcica_clouds
-    model, prof, sc, taut, fracs, _, _ = stack
-    B, L = prof.pavel.shape
-    cl_c = make_mcica_clouds(ncol=B, nlay=L, dtype=jnp.float32,
-                             layout="compact")
-    cl_b = cl_c.to_blocked()
-    kw = dict(static=model.static_np, idrv=0,
-              heatfac_val=model.heatfac)
-
-    def to_blocked(x):
-        return jnp.pad(jnp.transpose(x, (1, 2, 0)),
-                       ((0, 0), (0, 4), (0, 0)))
-    taut_b, fracs_b = to_blocked(taut), to_blocked(fracs)
-    taua0 = jnp.zeros_like(prof.taua)
-    abi_t, abl_t, _ = cld_ops.cloud_optics_bands_blocked(
-        cl_b, model.static_np, iceflag=3, liqflag=1)
-
-    ref = rtp.rt_random_overlap_pallas(
-        taut_b, fracs_b, sc.planklay, sc.planklev, sc.plankbnd,
-        sc.dplankbnd_dt, prof.semiss, prof.pwvcm, prof.pz, None, None,
-        taua=taua0, cloudy=True, gate_thresh=0.5, native="blocked",
-        cloud_fields=(cl_b.cldfmc, cl_b.ciwpmc, cl_b.clwpmc,
-                      cl_b.taucmc, abi_t, abl_t),
-        interpret=True, tile=8, **kw)
-
-    if mode == "chunked":
-        monkeypatch.setenv("RRTMG_RT_NO_RESIDENT", "1")
-    cw_t = jnp.pad(jnp.stack([cl_c.ciwp.T, cl_c.clwp.T], axis=1),
-                   ((0, 0), (0, 6), (0, 0)))
-    out = rtp.rt_random_overlap_pallas(
-        taut_b, fracs_b, sc.planklay, sc.planklev, sc.plankbnd,
-        sc.dplankbnd_dt, prof.semiss, prof.pwvcm, prof.pz, None, None,
-        taua=taua0, cloudy=True, gate_thresh=0.5, native="blocked",
-        cloud_fields=(cl_c.cldfmc, cw_t, abi_t, abl_t),
-        interpret=True, tile=8, **kw)
-    for name in ("totuflux", "totdflux", "totuclfl", "totdclfl"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(out, name)),
-            np.asarray(getattr(ref, name)), err_msg=name)
+def _kernel(stack, args, cloudy, idrv, thresh=0.5):
+    model = stack[0]
+    return rtp.rt_random_overlap_pallas(
+        *args, cloudy=cloudy, gate_thresh=thresh, static=model.static_np,
+        idrv=idrv, heatfac_val=model.heatfac, interpret=True)
 
 
-def test_compact_clouds_model_grad(stack):
-    """The compact path must be reachable from the model and
-    differentiable (custom_vjp reconstructs the blocked arrays)."""
-    from rrtmg_lw_tpu.types import McicaCloudsCompact
-    from rrtmg_lw_tpu.utils.synthetic import make_mcica_clouds
-    cl_c = make_mcica_clouds(ncol=8, nlay=43, dtype=jnp.float32,
-                             layout="compact")
-    assert isinstance(cl_c, McicaCloudsCompact)
-    bl = cl_c.to_blocked()
-    np.testing.assert_array_equal(
-        np.asarray(bl.ciwpmc[:, :140, :]),
-        np.asarray(jnp.transpose(cl_c.ciwp, (1, 0))[:, None, :]
-                   * cl_c.cldfmc[:, :140, :]))
-
-
-@pytest.mark.parametrize("mode", ["resident", "chunked"])
-def test_banded_clouds_parity(stack, mode, monkeypatch):
-    """Deterministic per-band clouds (icld=1): the in-kernel band->g
-    expansion must match the pre-expanded (B, L, G) path (edot split
-    precision ~2^-24).  ``chunked`` runs the banded kernel in the
-    deep-profile VMEM layout (streamed inputs + level cache)."""
-    from rrtmg_lw_tpu.ops import cldprop as cld_ops
-    from rrtmg_lw_tpu.types import BandClouds
-    model, prof, sc, taut, fracs, _, _ = stack
-    B, L = prof.pavel.shape
-    rng = np.random.default_rng(5)
-    bc = BandClouds(
-        cldfrac=jnp.asarray(np.clip(rng.random((B, L)) - 0.3, 0, 0.9),
-                            jnp.float32),
-        tauc=jnp.zeros((B, L, 16), jnp.float32),
-        ciwp=jnp.full((B, L), 5.0, jnp.float32),
-        clwp=jnp.full((B, L), 20.0, jnp.float32),
-        reic=jnp.full((B, L), 30.0, jnp.float32),
-        relq=jnp.full((B, L), 10.0, jnp.float32))
-    kw = dict(static=model.static_np, idrv=0,
-              heatfac_val=model.heatfac)
-
-    taucloud, _ = cld_ops.cldprop(bc, model.static_np, inflag=2,
-                                  iceflag=3, liqflag=1)
-    odcld_g = taucloud[..., model.ngb0]
-    cldf_g = jnp.broadcast_to(bc.cldfrac[..., None], odcld_g.shape)
-    ref = rtp.rt_random_overlap_pallas(
-        taut, fracs, sc.planklay, sc.planklev, sc.plankbnd,
-        sc.dplankbnd_dt, prof.semiss, prof.pwvcm, prof.pz, cldf_g,
-        odcld_g, cloudy=True, gate_thresh=1.0e-6, interpret=True, **kw)
-
-    def to_blocked(x):
-        return jnp.pad(jnp.transpose(x, (1, 2, 0)),
-                       ((0, 0), (0, 4), (0, 0)))
-    if mode == "chunked":
-        monkeypatch.setenv("RRTMG_RT_NO_RESIDENT", "1")
-    taucb_t, _ = cld_ops.cldprop_banded_blocked(
-        bc, model.static_np, inflag=2, iceflag=3, liqflag=1)
-    cl8_t = jnp.pad(bc.cldfrac.T[:, None, :], ((0, 0), (0, 7), (0, 0)))
-    out = rtp.rt_random_overlap_pallas(
-        to_blocked(taut), to_blocked(fracs), sc.planklay, sc.planklev,
-        sc.plankbnd, sc.dplankbnd_dt, prof.semiss, prof.pwvcm, prof.pz,
-        None, None, taua=jnp.zeros_like(prof.taua), cloudy=True,
-        gate_thresh=1.0e-6, native="blocked",
-        cloud_fields=(cl8_t, taucb_t), interpret=True, tile=8, **kw)
-    for name in ("totuflux", "totdflux", "totuclfl", "totdclfl"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(out, name)),
-            np.asarray(getattr(ref, name)), atol=1e-4, err_msg=name)
-
-
-@pytest.mark.parametrize("mode", ["resident", "chunked"])
-@pytest.mark.parametrize("idrv", [0, 1])
-def test_maxrand_pallas_parity(stack, idrv, mode, monkeypatch):
-    """Pallas rtrnmr (max-random overlap sub-stream recursion) vs the
-    XLA scan implementation."""
-    from rrtmg_lw_tpu.ops import cldprop as cld_ops
-    from rrtmg_lw_tpu.ops import rtrnmr as rtmr
-    from rrtmg_lw_tpu.types import BandClouds
-    model, prof, sc, taut, fracs, _, _ = stack
-    B, L = prof.pavel.shape
-    rng = np.random.default_rng(9)
-    # block-structured cloud fraction exercising istcld transitions
-    cf = np.zeros((B, L), np.float32)
-    for b in range(B):
-        for s in range(3):
-            lo = rng.integers(0, L - 6)
-            cf[b, lo:lo + rng.integers(2, 6)] = rng.random() * 0.9
-    bc = BandClouds(
-        cldfrac=jnp.asarray(cf),
-        tauc=jnp.zeros((B, L, 16), jnp.float32),
-        ciwp=jnp.full((B, L), 5.0, jnp.float32),
-        clwp=jnp.full((B, L), 20.0, jnp.float32),
-        reic=jnp.full((B, L), 30.0, jnp.float32),
-        relq=jnp.full((B, L), 10.0, jnp.float32))
-    kw = dict(static=model.static_np, idrv=idrv,
-              heatfac_val=model.heatfac)
-    if mode == "chunked":
-        # deep-profile VMEM layout: inputs stream per chunk while the
-        # Lp-sized level cache persists (rtrn_pallas._vmem_plan)
-        monkeypatch.setenv("RRTMG_RT_NO_RESIDENT", "1")
-
-    taucloud, _ = cld_ops.cldprop(bc, model.static_np, inflag=2,
-                                  iceflag=3, liqflag=1)
-    odcld_g = taucloud[..., model.ngb0]
-    ref = rtmr.rt_maxrandom(
-        taut, fracs, sc.planklay, sc.planklev, sc.plankbnd,
-        sc.dplankbnd_dt, prof.semiss, prof.pwvcm, prof.pz, bc.cldfrac,
-        odcld_g, luts=None, use_lut=False, istart=1, iend=16, **kw)
-
-    def to_blocked(x):
-        return jnp.pad(jnp.transpose(x, (1, 2, 0)),
-                       ((0, 0), (0, 4), (0, 0)))
-    taucb_t, _ = cld_ops.cldprop_banded_blocked(
-        bc, model.static_np, inflag=2, iceflag=3, liqflag=1)
-    out = rtp.rt_maxrandom_pallas(
-        to_blocked(taut), to_blocked(fracs), sc.planklay, sc.planklev,
-        sc.plankbnd, sc.dplankbnd_dt, prof.semiss, prof.pwvcm, prof.pz,
-        bc.cldfrac, taucb_t, taua=jnp.zeros_like(prof.taua),
-        interpret=True, tile=8, **kw)
-    names = ["totuflux", "totdflux", "totuclfl", "totdclfl"]
-    if idrv:
-        names += ["dtotuflux_dt", "dtotuclfl_dt"]
+def _assert_fluxes_match(out, ref, names):
     for name in names:
         a = np.asarray(getattr(ref, name))
         b = np.asarray(getattr(out, name))
         scale = max(np.abs(a).max(), 1.0)
-        np.testing.assert_allclose(b, a, atol=3e-6 * scale,
+        np.testing.assert_allclose(b, a, atol=2e-6 * scale, err_msg=name)
+
+
+@pytest.mark.parametrize("cloudy,idrv", [(False, 0), (True, 0),
+                                         (True, 1), (False, 1)])
+def test_flux_parity(stack, cloudy, idrv):
+    args = _args(stack, cloudy)
+    out = _kernel(stack, args, cloudy, idrv)
+    ref = _reference(stack, args, cloudy, idrv)
+    names = FLUXES + (["dtotuflux_dt", "dtotuclfl_dt"] if idrv else [])
+    _assert_fluxes_match(out, ref, names)
+    assert out.htr.shape == (B, L)
+
+
+@pytest.mark.parametrize("block_b,block_g", [(8, 16), (64, 64)])
+def test_block_shapes_agree(stack, block_b, block_g, monkeypatch):
+    """Other column/g blocks (one needing no column padding, one wider
+    than the batch) give the same fluxes."""
+    monkeypatch.setattr(rtp, "BLOCK_B", block_b)
+    monkeypatch.setattr(rtp, "BLOCK_G", block_g)
+    args = _args(stack, True)
+    out = _kernel(stack, args, True, 0)
+    _assert_fluxes_match(out, _reference(stack, args, True, 0), FLUXES)
+
+
+def test_banded_threshold_and_weighted_od(stack):
+    """Banded random overlap: a per-layer cldfrac broadcast to g, gated
+    at 1e-6, with the cloud od already secdiff-weighted."""
+    model, prof, sc, taut, fracs, cldf, odcld = stack
+    frac = jnp.asarray(np.random.default_rng(1).random((B, L)) * 0.8,
+                       jnp.float32)
+    cf = jnp.broadcast_to(frac[..., None], taut.shape)
+    args = _args(stack, True)
+    args = args[:9] + (cf, odcld)
+    out = rtp.rt_random_overlap_pallas(
+        *args, cloudy=True, gate_thresh=1e-6, static=model.static_np,
+        idrv=0, heatfac_val=model.heatfac, odcld_weighted=True,
+        interpret=True)
+    gate = cf >= 1e-6
+    ref = rt.rt_random_overlap(
+        *args, cloudy_lay=jnp.any(gate, -1), cld_gate=gate,
+        static=model.static_np, luts=None, use_lut=False, idrv=0,
+        heatfac_val=model.heatfac, odcld_weighted=True)
+    _assert_fluxes_match(out, ref, FLUXES)
+
+
+def test_custom_vjp_matches_xla_gradient(stack):
+    """The kernel's backward is the XLA sweep's vjp: gradients agree
+    with autodiff of rt_random_overlap to f32 roundoff."""
+    args = _args(stack, True)
+
+    def loss(fn, t, pl_):
+        a = (t,) + args[1:2] + (pl_,) + args[3:]
+        out = fn(a)
+        return jnp.sum(out.totuflux ** 2) + jnp.sum(out.htr)
+
+    def k(a):
+        return _kernel(stack, a, True, 0)
+
+    def x(a):
+        return _reference(stack, a, True, 0)
+
+    gk = jax.grad(lambda t, p: loss(k, t, p), argnums=(0, 1))(
+        args[0], args[2])
+    gx = jax.grad(lambda t, p: loss(x, t, p), argnums=(0, 1))(
+        args[0], args[2])
+    for a, b in zip(gk, gx):
+        a, b = np.asarray(a), np.asarray(b)
+        assert np.isfinite(a).all() and np.abs(a).max() > 0
+        np.testing.assert_allclose(a, b, atol=1e-4 * np.abs(b).max())
+
+
+def test_auto_resolves_to_xla_off_gpu():
+    cfg = LWConfig(icld=2, dtype="float32", use_lut=False)
+    assert not make_model(cfg).rt_pallas
+    assert make_model(cfg.replace(rt_impl="pallas",
+                                  pallas_interpret=True)).rt_pallas
+
+
+@pytest.mark.parametrize("kw", [
+    dict(dtype="float32", use_lut=False),             # no GPU here
+    dict(dtype="float64", use_lut=False, pallas_interpret=True),
+    dict(dtype="float32", use_lut=True, pallas_interpret=True),
+])
+def test_explicit_pallas_outside_coverage_raises(kw):
+    with pytest.raises(ValueError):
+        make_model(LWConfig(rt_impl="pallas", **kw))
+
+
+def test_lowers_to_triton_for_cuda(stack):
+    """The kernel lowers through the Triton route (no card needed for
+    the Pallas -> Triton IR step)."""
+    args = _args(stack, True)
+    model = stack[0]
+
+    def f(a):
+        return rtp.rt_random_overlap_pallas(
+            *a, cloudy=True, gate_thresh=0.5, static=model.static_np,
+            idrv=1, heatfac_val=model.heatfac)
+
+    text = jax.jit(f).trace(args).lower(
+        lowering_platforms=("cuda",)).as_text()
+    assert "__gpu$xla.gpu.triton" in text
+
+
+@pytest.mark.parametrize("icld,imca,clouds", [
+    (0, 1, None), (2, 1, "compact"), (1, 0, "band")])
+def test_model_paths_match_xla(icld, imca, clouds):
+    """The model's dispatch: kernel (interpret) vs XLA sweep through
+    the whole step, for clear, McICA (compact clouds) and banded."""
+    kw = dict(icld=icld, imca=imca, dtype="float32", use_lut=False,
+              idrv=1)
+    mk = make_model(LWConfig(rt_impl="pallas", pallas_interpret=True,
+                             **kw))
+    mx = make_model(LWConfig(rt_impl="xla", **kw))
+    atm = make_atmosphere(ncol=B, nlay=L, dtype=jnp.float32)
+    cl = {None: None,
+          "compact": make_mcica_clouds(ncol=B, nlay=L, dtype=jnp.float32,
+                                       layout="compact"),
+          "band": make_band_clouds(ncol=B, nlay=L,
+                                   dtype=jnp.float32)}[clouds]
+    a = jax.jit(lambda a, c: mk(a, c))(atm, cl)
+    b = jax.jit(lambda a, c: mx(a, c))(atm, cl)
+    for name in ("uflx", "dflx", "uflxc", "dflxc", "duflx_dt"):
+        x, y = np.asarray(getattr(a, name)), np.asarray(getattr(b, name))
+        np.testing.assert_allclose(x, y, atol=2e-6 * np.abs(y).max(),
                                    err_msg=name)
 
 
-def test_compact_int8_mask_parity(stack):
-    """int8 binary mask == f32 mask bit-for-bit through the model."""
-    from rrtmg_lw_tpu.utils.synthetic import make_mcica_clouds
-    model, prof, sc, taut, fracs, _, _ = stack
-    B, L = prof.pavel.shape
-    cl_f = make_mcica_clouds(ncol=B, nlay=L, dtype=jnp.float32,
-                             layout="compact")
-    cl_i = make_mcica_clouds(ncol=B, nlay=L, dtype=jnp.float32,
-                             layout="compact", mask_dtype=np.int8)
-    np.testing.assert_array_equal(np.asarray(cl_f.cldfmc),
-                                  np.asarray(cl_i.cldfmc, np.float32))
-    bf = cl_f.to_blocked()
-    bi = cl_i.to_blocked()
-    np.testing.assert_array_equal(np.asarray(bf.ciwpmc),
-                                  np.asarray(bi.ciwpmc))
-
-
-@pytest.mark.parametrize("inflag", [0, 1, 2])
-def test_cldprop_banded_blocked_matches_plain(stack, inflag):
-    from rrtmg_lw_tpu.ops import cldprop as cld_ops
-    from rrtmg_lw_tpu.utils.synthetic import make_band_clouds
-    model = stack[0]
-    bc = make_band_clouds(ncol=8, nlay=43, dtype=jnp.float32)
-    if inflag == 0:
-        bc = bc._replace(tauc=jnp.where(
-            bc.cldfrac[..., None] > 0, 3.0, 0.0)
-            * jnp.ones((1, 1, 16), jnp.float32))
-    kw = dict(inflag=inflag, iceflag=3, liqflag=1)
-    tau, ok = cld_ops.cldprop(bc, model.static_np, **kw)
-    tau_t, ok_t = cld_ops.cldprop_banded_blocked(bc, model.static_np,
-                                                 **kw)
-    np.testing.assert_array_equal(
-        np.asarray(tau_t), np.transpose(np.asarray(tau), (1, 2, 0)))
-    np.testing.assert_array_equal(np.asarray(ok), np.asarray(ok_t))
-
-
-def test_nonresident_chunked_path():
-    """Large L flips the whole-profile VMEM residency off; the chunked
-    (plo/phi re-streaming) kernel must agree with the XLA scans."""
-    from rrtmg_lw_tpu.ops.inatm import inatm
-    from rrtmg_lw_tpu.ops.setcoef import setcoef
-    from rrtmg_lw_tpu.utils.synthetic import make_atmosphere
-    B, L = 4, 168
-    cfg = LWConfig(icld=0, dtype="float32", use_lut=False,
-                   taumol_impl="xla")
-    model = make_model(cfg)
-    atm = make_atmosphere(ncol=B, nlay=L, dtype=jnp.float32)
+@pytest.mark.gpu
+@pytest.mark.parametrize("cloudy,idrv", [(False, 0), (True, 1)])
+def test_compiled_kernel_matches_xla_on_gpu(cloudy, idrv):
+    """The Triton-compiled kernel (not the interpreter) against the XLA
+    sweep at a production layer count."""
+    Bg, Lg = 1000, 60
+    model = make_model(LWConfig(icld=2, dtype="float32", use_lut=False))
+    atm = make_atmosphere(ncol=Bg, nlay=Lg, dtype=jnp.float32)
+    cl = make_mcica_clouds(ncol=Bg, nlay=Lg, dtype=jnp.float32)
     prof = inatm(atm, dtype=jnp.float32)
-    sc = setcoef(prof, model.static, istart=1, idrv=0)
-    taug, fracs = model.engine(sc, prof)
-    taut = taug + prof.taua[..., model.ngb0]
-    rng = np.random.default_rng(2)
-    cldf = (rng.random((B, L, 140)) < 0.2).astype(np.float32)
-    odcld = (rng.random((B, L, 140)) * 4).astype(np.float32) * cldf
-    kw = dict(static=model.static_np, idrv=0,
-              heatfac_val=model.heatfac)
-    gate = jnp.asarray(cldf) >= 0.5
-    ref = rt.rt_random_overlap(
-        taut, fracs, sc.planklay, sc.planklev, sc.plankbnd,
-        sc.dplankbnd_dt, prof.semiss, prof.pwvcm, prof.pz,
-        jnp.asarray(cldf), jnp.asarray(odcld),
-        cloudy_lay=jnp.any(gate, -1), cld_gate=gate, luts=None,
-        use_lut=False, istart=1, iend=16, **kw)
-    # tile=128 at L=168 exceeds the residency budget -> chunked path
-    from rrtmg_lw_tpu.ops.rtrn_pallas import rt_fluxes_pallas
-    import numpy as _np
-    res = rt_fluxes_pallas(
-        taut, fracs, sc.planklay, sc.planklev, sc.plankbnd,
-        sc.dplankbnd_dt, prof.semiss, prof.pwvcm,
-        jnp.asarray(cldf), jnp.asarray(odcld), None,
-        gate_thresh=0.5, ngb0=model.ngb0,
-        delwave=_np.asarray(model.static_np["delwave"]),
-        cloudy=True, idrv=0, interpret=True)
-    names = ["totuflux", "totdflux", "totuclfl", "totdclfl"]
-    for name, got in zip(names, res):
-        a = np.asarray(getattr(ref, name))
-        scale = max(np.abs(a).max(), 1.0)
-        np.testing.assert_allclose(np.asarray(got), a,
-                                   atol=2e-6 * scale, err_msg=name)
-
-
-def test_model_maxrand_unaligned_batch_dispatch(monkeypatch):
-    """Regression: icld=2 imca=0 with the Pallas RT path at a batch the
-    blocked taumol layout does NOT support (B not tile-aligned) must
-    fall back to the (B, L, G) XLA rtrnmr — previously the model ran
-    taumol native (G, L, B) and fed that layout to rt_maxrandom, which
-    raised a broadcast error.  Run the full model with every
-    pallas_call interpreted and compare against the all-XLA model."""
-    from jax.experimental import pallas as _pl
-    from rrtmg_lw_tpu.utils.synthetic import (make_atmosphere,
-                                              make_band_clouds)
-    orig_call = _pl.pallas_call
-    monkeypatch.setattr(
-        _pl, "pallas_call",
-        lambda *a, **k: orig_call(*a, **{**k, "interpret": True}))
-    B, L = 8, 43
-    atm = make_atmosphere(ncol=B, nlay=L, dtype=jnp.float32)
-    bc = make_band_clouds(ncol=B, nlay=L, dtype=jnp.float32)
-    kw = dict(icld=2, imca=0, inflag=2, iceflag=3, liqflag=1,
-              dtype="float32", use_lut=False)
-    mp = make_model(LWConfig(taumol_impl="pallas", rt_impl="pallas",
-                             **kw))
-    mx = make_model(LWConfig(taumol_impl="xla", rt_impl="xla", **kw))
-    fp = mp(atm, bc)
-    fx = mx(atm, bc)
-    for name in ("uflx", "dflx", "uflxc", "dflxc"):
-        a = np.asarray(getattr(fx, name))
-        scale = max(np.abs(a).max(), 1.0)
-        np.testing.assert_allclose(np.asarray(getattr(fp, name)), a,
-                                   atol=2e-5 * scale, err_msg=name)
-
-
-def test_sparse_cloud_levels_match_dense(stack):
-    """The per-(tile, level) cloudy-stream skip (pl.when on the
-    any-cloudy scalar) must be invisible: a batch whose cloud mask is
-    zero everywhere except a few layers gives bitwise the same fluxes
-    as the unskipped math (where cly is all-false the blended radiance
-    already equals the gas-only advance)."""
-    model, prof, sc, taut, fracs, cldf, odcld = stack
-    kw = dict(static=model.static_np, idrv=0, heatfac_val=model.heatfac)
-    # zero out all but two cloudy layers
-    cldf2 = np.asarray(cldf).copy()
-    keep = [5, 6]
-    mask = np.zeros(cldf2.shape[1], bool)
-    mask[keep] = True
-    cldf2[:, ~mask, :] = 0.0
-    out = rtp.rt_random_overlap_pallas(
-        taut, fracs, sc.planklay, sc.planklev, sc.plankbnd,
-        sc.dplankbnd_dt, prof.semiss, prof.pwvcm, prof.pz,
-        jnp.asarray(cldf2), odcld, cloudy=True, gate_thresh=0.5,
-        interpret=True, **kw)
-    # the XLA reference path (no skip) on the identical inputs
-    gate = jnp.asarray(cldf2) >= 0.5
-    ref = rt.rt_random_overlap(
-        taut, fracs, sc.planklay, sc.planklev, sc.plankbnd,
-        sc.dplankbnd_dt, prof.semiss, prof.pwvcm, prof.pz,
-        jnp.asarray(cldf2), odcld, cloudy_lay=jnp.any(gate, axis=-1),
-        cld_gate=gate, static=model.static_np, luts=None,
-        use_lut=False, idrv=0, heatfac_val=model.heatfac)
-    for name in ["totuflux", "totdflux", "totuclfl", "totdclfl"]:
+    sc, taut, fracs = model.optical_depth(prof)
+    cf = jnp.asarray(cl.cldfmc) if cloudy else None
+    od = jnp.asarray(cl.clwpmc) * 0.1 if cloudy else None
+    args = (taut, fracs, sc.planklay, sc.planklev, sc.plankbnd,
+            sc.dplankbnd_dt, prof.semiss, prof.pwvcm, prof.pz, cf, od)
+    stack = (model,)
+    out = jax.jit(lambda a: rtp.rt_random_overlap_pallas(
+        *a, cloudy=cloudy, gate_thresh=0.5, static=model.static_np,
+        idrv=idrv, heatfac_val=model.heatfac))(args)
+    ref = jax.jit(lambda a: _reference(stack, a, cloudy, idrv))(args)
+    for name in FLUXES:
         a = np.asarray(getattr(ref, name))
         b = np.asarray(getattr(out, name))
-        scale = max(np.abs(a).max(), 1.0)
-        np.testing.assert_allclose(b, a, atol=2e-6 * scale,
-                                   err_msg=name)
+        assert np.abs(b - a).max() <= 2e-5 * np.abs(a).max(), name

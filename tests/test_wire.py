@@ -1,4 +1,4 @@
-"""Compressed streaming wire format (VERDICT r3 next #3).
+"""Compressed streaming wire format.
 
 Gates: (a) decoded fields land within the documented quantization of
 the f32 originals, (b) the FLUX impact of wire quantization is
@@ -414,7 +414,7 @@ def test_wire_is_at_least_2x_smaller(atm):
 
 
 # ---------------------------------------------------------------------------
-# adversarial ingest robustness (VERDICT r4 #7): the wire is the
+# adversarial ingest robustness: the wire is the
 # production ingest boundary — corrupted/truncated/NaN-ref batches
 # must produce FLAGGED, FINITE outputs, never NaN fluxes
 # ---------------------------------------------------------------------------

@@ -99,7 +99,7 @@ def build_static_tables(ref: pathlib.Path) -> dict:
 
 
 def verify_manifest(path) -> int:
-    """Structural pre-flight for a real k-data blob (VERDICT r2 #5).
+    """Structural pre-flight for a real k-data blob.
 
     Loads the candidate ``rrtmg_lw.nc`` / ``rrtmg_lw_k_g.f90`` with the
     production readers and checks every band's original arrays against
