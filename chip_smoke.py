@@ -20,9 +20,6 @@ Phases of a default run (one GPU):
             production shapes: parity of the stage on identical inputs,
             then the stage's time
 
-``--trial`` also times the four whole forward steps with the Pallas RT
-sweep against the same steps on the XLA sweep.
-
 ``--four`` runs only the four-GPU phase: the sharded forward, gradient
 and wire-decode steps at B=4x16384/nlay=60 on (columns=4, spec=1) and
 (columns=2, spec=2) meshes, each against the one-card result on the
@@ -32,7 +29,7 @@ Every phase raises on a failed check; the script then exits non-zero
 and prints no result line.  The last line of a passing run is one JSON
 object: {"ok": true, "device": {"platform", "kind", "count"}}.
 
-Run:  python chip_smoke.py [--four | --trial]
+Run:  python chip_smoke.py [--four]
 """
 
 from __future__ import annotations
@@ -53,23 +50,26 @@ N_ORACLE = 4         # f64 columns compared with the scalar oracle
 N_GRAD = 256         # columns of the gradient comparison
 # f32 vs f64 gates: ~100x inside the reference's 0.5 W/m2 / 0.1 K/day
 # contract, and ~10x below what TF32 flux sums would cost (0.1-0.4 W/m2).
-# Heating rates are gated on their error beyond f32 flux storage: a
-# layer's hr is heatfac * (fnet[l] - fnet[l+1]) / dp, and rounding four
-# f32 fluxes alone moves it by up to heatfac * 2 ulp(F) / dp, which at
-# the model top (dp ~ 0.006 hPa at nlay=60, 0.0025 at 140) is 0.03-0.1
-# K/day on the f64 fluxes themselves.
+# Heating rates meet two gates.  Raw, they stay inside the reference's
+# 0.1 K/day contract.  Beyond f32 flux storage, they stay within 1e-2
+# K/day: a layer's hr is heatfac * (fnet[l] - fnet[l+1]) / dp, and
+# rounding four f32 fluxes alone moves it by up to heatfac * 2 ulp(F) /
+# dp, which at the model top (dp ~ 0.006 hPa at nlay=60, 0.0025 at 140)
+# is 0.03-0.1 K/day on the f64 fluxes themselves.
 FLUX_GATE = 1e-3     # W/m2
+HR_CONTRACT = 0.1    # K/day, raw
 HR_GATE = 1e-2       # K/day beyond the f32 flux-storage bound
 ORACLE_RTOL = 1e-9
 # kernel vs XLA sweep, f32, relative to the field's largest magnitude:
 # the roundoff of a 140-level f32 recursion
 KERNEL_RTOL = 2e-5
-# gradients: ||a - b|| / ||b|| per leaf.  The loss (mean hr^2 + mean
-# OLR^2) feeds the backward 2*hr/N, and two f32 forwards that round
-# their fluxes differently (the kernel vs the XLA sweep, or another
-# summation order under a spectral partition) differ in the top-layer
-# hr by up to the f32 storage bound; the cotangent inherits that.  A
-# wrong gradient is off by O(1).
+# gradients, per leaf: max |a - b| over max |b|.  The loss (mean hr^2 +
+# mean OLR^2) feeds the backward 2*hr/N, and two f32 forwards that
+# round their fluxes differently (the kernel vs the XLA sweep) differ in
+# the top-layer hr by up to the f32 storage bound; the cotangent
+# inherits that.  A wrong gradient is off by O(1).  Under a spectral
+# partition the g-sums also run in another order; there the gate is
+# ||a - b|| / ||b||, and the max-relative error is printed beside it.
 GRAD_RTOL = 1e-2
 WINDOWS = 7          # timing windows (median reported)
 STEPS = 5            # chained steps per window
@@ -115,10 +115,11 @@ def rel_l2(a, b):
                  / max(float(np.linalg.norm(b)), 1e-300))
 
 
-def hr_beyond_storage(hr, ref_fl, plev, heatfac, f, sides=1):
-    """max over (column, layer) of |hr - ref hr| minus what rounding
-    the fluxes to f32 may move hr by: heatfac * 2 ulp(F) / dp per f32
-    side (sides=2 when both results are f32)."""
+def gate_hr(name, hr, ref_fl, plev, heatfac, f, sides=1):
+    """Heating rate ``f`` against ``ref_fl``: max |hr - ref hr| within
+    the reference's contract, and within HR_GATE once what rounding the
+    fluxes to f32 may move hr by (heatfac * 2 ulp(F) / dp per f32 side;
+    sides=2 when both results are f32) is taken off."""
     u, d = ("uflx", "dflx") if f == "hr" else ("uflxc", "dflxc")
     err = np.abs(np.asarray(hr, np.float64)
                  - np.asarray(getattr(ref_fl, f), np.float64))
@@ -128,8 +129,31 @@ def hr_beyond_storage(hr, ref_fl, plev, heatfac, f, sides=1):
     dp = np.diff(-np.asarray(plev, np.float64), axis=1)
     bound = (sides * heatfac * 2.0 / dp
              * np.spacing(mag.astype(np.float32)).astype(np.float64))
-    log(f"  {f} K/day (raw)                     {err.max():.3e}")
-    return max(0.0, float(np.max(err - bound)))
+    gate(f"{name} K/day", float(err.max()), HR_CONTRACT)
+    gate(f"{name} beyond f32 storage",
+         max(0.0, float(np.max(err - bound))), HR_GATE)
+
+
+def gate_grads(name, got, want, scale=1.0, max_gate=True):
+    """Every gradient leaf of ``got`` (times ``scale``) against the same
+    leaf of ``want``, by GRAD_RTOL: max-relative, or with ``max_gate``
+    False rel L2 (the other printed beside it).  A leaf that is zero in
+    ``want`` must be zero in ``got``."""
+    import jax
+    for (path, g), w in zip(jax.tree_util.tree_flatten_with_path(got)[0],
+                            jax.tree_util.tree_leaves(want)):
+        leaf = f"{name}{jax.tree_util.keystr(path)}"
+        g = np.asarray(g, np.float64) * scale
+        if float(np.max(np.abs(np.asarray(w)))) == 0.0:
+            check(max_abs(g, w) == 0.0, f"{leaf} should be 0")
+            continue
+        mr, l2 = max_rel(g, w), rel_l2(g, w)
+        if max_gate:
+            log(f"  {leaf + ' rel L2':<34s} {l2:.3e}")
+            gate(f"{leaf} max rel", mr, GRAD_RTOL)
+        else:
+            log(f"  {leaf + ' max rel':<34s} {mr:.3e}")
+            gate(f"{leaf} rel L2", l2, GRAD_RTOL)
 
 
 # ----------------------------------------------------------------------
@@ -314,24 +338,19 @@ def _check_vs_f64(fl, ref, a64, heatfac, n_ref):
         gate(f"f32 vs f64 {f} W/m2",
              max_abs(getattr(fl, f)[:n_ref], getattr(ref, f)), FLUX_GATE)
     for f in HR_FIELDS:
-        gate(f"f32 vs f64 {f} beyond f32 storage", hr_beyond_storage(
-            getattr(fl, f)[:n_ref], ref, a64.plev, heatfac, f), HR_GATE)
+        gate_hr(f"f32 vs f64 {f}", getattr(fl, f)[:n_ref], ref, a64.plev,
+                heatfac, f)
 
 
 def phase_forward(B=B_FULL, nlays=NLAYS, n_ref=N_REF, n_oracle=N_ORACLE,
                   oracle_nlay=60, interpret=False):
-    """Returns {(L, sky): (compiled chained make_model step, device
-    inputs)} for --trial."""
     import jax
-    import jax.numpy as jnp
 
     from rrtmg_lw_tpu import make_model
     from rrtmg_lw_tpu import parallel as par
 
     mesh1 = par.make_mesh(jax.devices()[:1])
     dev = jax.devices()[0]
-    zero = jnp.zeros((), jnp.float32)
-    steps = {}
     for L in nlays:
         log(f"forward B={B} nlay={L}")
         atm_h, cl_h = make_inputs(B, L)
@@ -351,9 +370,7 @@ def phase_forward(B=B_FULL, nlays=NLAYS, n_ref=N_REF, n_oracle=N_ORACLE,
             c, c_s = (cld, cld_s) if cloudy else (None, None)
             items += [
                 (f"{sky} make_model", jax.jit(
-                    lambda a, c, eps, m=model: m(
-                        a._replace(tlay=a.tlay + eps), c)),
-                 (atm, c, zero)),
+                    lambda a, c, m=model: m(a, c)), (atm, c)),
                 (f"{sky} make_sharded_step",
                  par.make_sharded_step(model, mesh1), (atm_s, c_s)),
                 (f"{sky} f64 reference", jax.jit(
@@ -371,9 +388,8 @@ def phase_forward(B=B_FULL, nlays=NLAYS, n_ref=N_REF, n_oracle=N_ORACLE,
             log(f"forward {sky} B={B} nlay={L}: RT sweep "
                 f"{'pallas' if model.rt_pallas else 'xla'}")
             run, sharded, ref64 = next(exes), next(exes), next(exes)
-            fl = run(atm, c, zero)
+            fl = run(atm, c)
             check_fluxes(fl, B, L, cloudy)
-            steps[(L, sky)] = (run, atm, c)
             fl_s = sharded(atm_s, c_s)
             check_fluxes(fl_s, B, L, cloudy)
             for f in FLUX_FIELDS:
@@ -392,7 +408,6 @@ def phase_forward(B=B_FULL, nlays=NLAYS, n_ref=N_REF, n_oracle=N_ORACLE,
                 for f in FLUX_FIELDS:
                     gate(f"f64 vs oracle {f} rel",
                          max_rel(getattr(got, f), want[f]), ORACLE_RTOL)
-    return steps
 
 
 def grad_loss(fl):
@@ -433,15 +448,7 @@ def phase_grad(B=B_FULL, L=60, n_grad=N_GRAD, interpret=False):
     loss_a, g_a = small(atm_n, cld_n)
     loss_x, g_x = xla(atm_n, cld_n)
     gate("grad loss rel", rel_l2(loss_a, loss_x), GRAD_RTOL)
-    for (path, want), got in zip(
-            jax.tree_util.tree_flatten_with_path(g_x)[0],
-            jax.tree_util.tree_leaves(g_a)):
-        if float(np.max(np.abs(np.asarray(want)))) == 0.0:
-            check(max_abs(got, want) == 0.0,
-                  f"grad{jax.tree_util.keystr(path)} should be 0")
-            continue
-        gate(f"grad{jax.tree_util.keystr(path)} rel L2",
-             rel_l2(got, want), GRAD_RTOL)
+    gate_grads("grad", g_a, g_x)
 
 
 def _window_ms(go, n_steps):
@@ -478,6 +485,12 @@ def phase_rt_kernel(B=B_FULL, nlays=NLAYS, interpret=False,
 
     mx = make_model(configs(interpret)["mcica"].replace(rt_impl="xla"))
     common = dict(static=mx.static_np, idrv=0, heatfac_val=mx.heatfac)
+    zero = jnp.zeros((), jnp.float32)
+
+    def nudged(args, eps):
+        """pwvcm + eps: a scalar carries the chained calls' dependency
+        into the stage, so a window times the sweep alone."""
+        return args[:7] + (args[7] + eps,) + args[8:]
 
     @jax.jit
     def stage_inputs(a, cl):
@@ -490,7 +503,8 @@ def phase_rt_kernel(B=B_FULL, nlays=NLAYS, interpret=False,
                 mc.cldfmc, od)
 
     def stage_k(cloudy):
-        def f(args):
+        def f(args, eps):
+            args = nudged(args, eps)
             if not cloudy:
                 args = args[:9] + (None, None)
             return rtp.rt_random_overlap_pallas(
@@ -499,8 +513,9 @@ def phase_rt_kernel(B=B_FULL, nlays=NLAYS, interpret=False,
         return jax.jit(f)
 
     def stage_x(cloudy):
-        def f(args):
-            t, f_, pl_, pv, bnd, dbnd, sem, pwv, pz, cf, od = args
+        def f(args, eps):
+            t, f_, pl_, pv, bnd, dbnd, sem, pwv, pz, cf, od = nudged(
+                args, eps)
             if not cloudy:
                 cf = od = jnp.zeros(t.shape, t.dtype)
             g = cf >= 0.5
@@ -512,11 +527,11 @@ def phase_rt_kernel(B=B_FULL, nlays=NLAYS, interpret=False,
 
     def chain(fn, ins):
         def go(n):
-            args = ins
+            eps = zero
             for _ in range(n):
-                out = fn(args)
+                out = fn(ins, eps)
                 # the next call's input depends on this output
-                args = (args[0] + out[0][0, 0] * 1e-30,) + args[1:]
+                eps = out[0][0, 0] * 1e-30
             jax.block_until_ready(out)
         return go
 
@@ -528,12 +543,13 @@ def phase_rt_kernel(B=B_FULL, nlays=NLAYS, interpret=False,
         items = []
         for sky in ("clear", "mcica"):
             cloudy = sky == "mcica"
-            items += [(f"{sky} rt stage pallas", stage_k(cloudy), (ins,)),
-                      (f"{sky} rt stage xla", stage_x(cloudy), (ins,))]
+            items += [(f"{sky} rt stage pallas", stage_k(cloudy),
+                       (ins, zero)),
+                      (f"{sky} rt stage xla", stage_x(cloudy), (ins, zero))]
         exes = iter(compile_all(items))
         for sky in ("clear", "mcica"):
             fk, fx = next(exes), next(exes)
-            out_k, out_x = fk(ins), fx(ins)
+            out_k, out_x = fk(ins, zero), fx(ins, zero)
             for i, name in ((0, "uflx"), (1, "dflx"), (3, "uflxc"),
                             (4, "dflxc")):
                 gate(f"{sky} kernel vs xla {name} rel",
@@ -548,47 +564,6 @@ def phase_rt_kernel(B=B_FULL, nlays=NLAYS, interpret=False,
                 {k: v for k, v in row.items() if not k.endswith("_all")}))
             rows.append(row)
         del ins
-    return rows
-
-
-def phase_trial(steps, windows=WINDOWS, n_steps=STEPS):
-    """Whole steps with the Pallas RT sweep (the forward phase's
-    make_model executables) against the same steps on the XLA sweep."""
-    import jax
-    import jax.numpy as jnp
-
-    from rrtmg_lw_tpu import make_model
-
-    zero = jnp.zeros((), jnp.float32)
-    keys = sorted(steps)
-    items = []
-    for L, sky in keys:
-        _, atm, c = steps[(L, sky)]
-        mx = make_model(configs()[sky].replace(rt_impl="xla"))
-        items.append((f"{sky} nlay={L} whole step xla", jax.jit(
-            lambda a, c, eps, m=mx: m(a._replace(tlay=a.tlay + eps), c)),
-            (atm, c, zero)))
-    rows = []
-    for (L, sky), run_x in zip(keys, compile_all(items)):
-        run_k, atm, c = steps[(L, sky)]
-
-        def chain(run):
-            def go(n):
-                eps = zero
-                for _ in range(n):
-                    fl = run(atm, c, eps)
-                    eps = fl.uflx[0, 0] * 1e-30
-                jax.block_until_ready(fl)
-            return go
-
-        mk, mxl, tk, tx = _alternate(chain(run_k), chain(run_x), windows,
-                                     n_steps)
-        row = {"nlay": L, "sky": sky, "step_pallas_ms": mk,
-               "step_xla_ms": mxl, "step_pallas_all": tk,
-               "step_xla_all": tx}
-        log("  trial " + json.dumps(
-            {k: v for k, v in row.items() if not k.endswith("_all")}))
-        rows.append(row)
     return rows
 
 
@@ -672,22 +647,16 @@ def phase_four(B1=B_FULL, L=60, n_dev=4, interpret=False):
             gate(f"{f} vs one card W/m2",
                  max_abs(getattr(fl, f), getattr(ref_f, f)), FLUX_GATE)
         for f in HR_FIELDS:
-            gate(f"{f} vs one card beyond f32 storage",
-                 hr_beyond_storage(getattr(fl, f), ref_f, atm_h.plev,
-                                   model.heatfac, f, sides=2), HR_GATE)
+            gate_hr(f"{f} vs one card", getattr(fl, f), ref_f, atm_h.plev,
+                    model.heatfac, f, sides=2)
         loss, g = gs(*d)
         # the loss is a column mean: one card's chunk gradients are
         # n_dev times the full batch's on the same columns
         gate("loss vs one card rel",
              rel_l2(float(loss), np.mean(ref_l)), GRAD_RTOL)
-        for (path, got), want in zip(
-                jax.tree_util.tree_flatten_with_path(jax.device_get(g))[0],
-                jax.tree_util.tree_leaves(ref_g)):
-            if float(np.max(np.abs(want))) == 0.0:
-                continue
-            gate(f"grad{jax.tree_util.keystr(path)} vs one card rel L2",
-                 rel_l2(got * n_dev, want), GRAD_RTOL)
-        fw = jax.device_get(ws(*wr))
+        gate_grads("grad vs one card", jax.device_get(g), ref_g,
+                   scale=n_dev, max_gate=meshes[tag].shape[par.SPEC] == 1)
+        fw =jax.device_get(ws(*wr))
         check(bool(np.asarray(fw.wire_ok).all()), "wire_ok false")
         for f in FLUX_FIELDS:
             gate(f"wire {f} vs one card W/m2",
@@ -698,9 +667,6 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--four", action="store_true",
                     help="run only the four-GPU sharded phase")
-    ap.add_argument("--trial", action="store_true",
-                    help="also time whole steps with the Pallas RT sweep "
-                         "against the XLA sweep")
     args = ap.parse_args(argv)
 
     import jax
@@ -715,11 +681,9 @@ def main(argv=None):
             phase_four()
         else:
             info = phase_device()
-            steps = phase_forward()
+            phase_forward()
             phase_grad()
             phase_rt_kernel()
-            if args.trial:
-                phase_trial(steps)
     except CheckFailed as e:
         log(f"FAILED: {e}")
         return 1

@@ -7,14 +7,13 @@ McICA): batched over columns, sharded over device meshes, jit-compiled.
 
 from .config import LWConfig
 from .types import (Atmosphere, BandClouds, Fluxes, McicaClouds,
-                    McicaCloudsBlocked, McicaCloudsCompact, Profile,
-                    SetcoefOut)
+                    McicaCloudsCompact, Profile, SetcoefOut)
 from .models.radiation import RRTMGLW, make_model
 
 __version__ = "0.1.0"
 
 __all__ = [
     "LWConfig", "Atmosphere", "BandClouds", "Fluxes", "McicaClouds",
-    "McicaCloudsBlocked", "McicaCloudsCompact", "Profile", "SetcoefOut",
+    "McicaCloudsCompact", "Profile", "SetcoefOut",
     "RRTMGLW", "make_model", "__version__",
 ]

@@ -31,7 +31,7 @@ from ..ops.setcoef import setcoef
 from ..ops.tables import build_lookup_tables
 from ..ops.taumol import TaumolEngine
 from ..types import (Atmosphere, BandClouds, Fluxes, McicaClouds,
-                     McicaCloudsBlocked, McicaCloudsCompact, Profile)
+                     McicaCloudsCompact, Profile)
 
 # "not passed" marker for per-call spec_constraint (None is meaningful:
 # it explicitly disables the spectral partition).
@@ -179,8 +179,7 @@ class RRTMGLW:
         if cfg.icld == 0 or clouds is None:
             out = run_rt(None, None, False, 2.0)
         elif cfg.imca == 1:
-            assert isinstance(clouds, (McicaClouds, McicaCloudsBlocked,
-                                       McicaCloudsCompact))
+            assert isinstance(clouds, (McicaClouds, McicaCloudsCompact))
             if not isinstance(clouds, McicaClouds):
                 clouds = clouds.to_batch()
             taucmc, bounds_ok = cld_ops.cldprmc(

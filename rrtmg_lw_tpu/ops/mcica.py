@@ -162,8 +162,8 @@ def mcica_subcol_lw(key, icld: int, cldfrac, ciwp, clwp, rei, rel, tauc,
 
 
 @partial(jax.jit, static_argnames=("icld",))
-def _native_cdf_blocked(key, icld: int, cldf_t, alpha_t):
-    """CDF (L, G, B) after overlap correlation — the Pallas pipeline's
+def _native_cdf_gmajor(key, icld: int, cldf_t, alpha_t):
+    """CDF (L, G, B) after overlap correlation — the compact form's
     g-major layout (like the reference's cldfmcl(ngptlw, ncol, nlay));
     the overlap scan runs over the leading layer axis, so no relayout
     passes appear anywhere.  Same overlap math as _native_cdf
@@ -206,9 +206,9 @@ def mcica_subcol_lw_compact(key, icld: int, cldfrac, ciwp, clwp, rei,
                             rel, alpha=None, g_pad=144,
                             mask_dtype=None) -> McicaCloudsCompact:
     """Generator emitting the compact (binary mask + per-layer water
-    path) form with the mask already in the Pallas pipeline's padded
-    (L, G_pad, B) layout: a full generate+radiate step then runs with
-    zero relayout passes and 1/4 the cloud HBM traffic.
+    path) form with the mask in the padded (L, G_pad, B) layout of
+    McicaCloudsCompact and the streaming wire, at 1/4 the bytes of
+    the per-g McicaClouds.
 
     Sub-column statistics match mcica_subcol_lw (identical overlap
     math; independent jax.random draws in g-major order).  For the
@@ -221,7 +221,7 @@ def mcica_subcol_lw_compact(key, icld: int, cldfrac, ciwp, clwp, rei,
     cldf_t = cldf.T
     alpha_t = (jnp.zeros((L, B), dtype) if alpha is None
                else jnp.asarray(alpha).T)
-    cdf = _native_cdf_blocked(key, icld, cldf_t, alpha_t)
+    cdf = _native_cdf_gmajor(key, icld, cldf_t, alpha_t)
     iscloudy = cdf >= (1.0 - cldf_t)[:, None, :]
     mdt = dtype if mask_dtype is None else mask_dtype
     mask = jnp.pad(jnp.where(iscloudy, 1, 0).astype(mdt),

@@ -64,8 +64,8 @@ def make_sharded_step(model, mesh, donate: bool = False,
     """jit-compile ``model(atm, clouds) -> Fluxes`` over the mesh.
 
     Inputs are placed by ``shard_batch`` (layout aware: batch-first
-    leaves shard axis 0, blocked/compact cloud arrays their last
-    axis); jit inherits those shardings, so any cloud layout works.
+    leaves shard axis 0, compact cloud masks their last axis);
+    jit inherits those shardings, so any cloud layout works.
     ``use_shard_map``: see ``_forward``.
     """
     return jax.jit(_forward(model, mesh, use_shard_map),
@@ -89,8 +89,8 @@ def make_sharded_grad_step(model, mesh, loss_fn=None,
         return jax.value_and_grad(lambda a: loss_fn(fwd(a, clouds)))(atm)
 
     # inputs are placed layout-aware by shard_batch (a blanket
-    # in_shardings would shard the L axis of blocked/compact cloud
-    # arrays over columns); jit inherits the argument shardings.
+    # in_shardings would shard the L axis of compact cloud masks over
+    # columns); jit inherits the argument shardings.
     # The gradient mirrors the batch-first Atmosphere tree -> bs.
     return jax.jit(step, out_shardings=(None, batch_sharding(mesh)))
 

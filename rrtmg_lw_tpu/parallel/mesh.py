@@ -54,14 +54,12 @@ def replicated(mesh: Mesh) -> NamedSharding:
 def shardings_for(tree, mesh: Mesh):
     """Matching pytree of NamedShardings with the columns axis placed
     per leaf layout: batch-first (B, ...) leaves shard axis 0; the
-    blocked/compact cloud layouts carry columns on the LAST axis of
-    their (L, G_pad, B) per-g arrays."""
-    from ..types import McicaCloudsBlocked, McicaCloudsCompact
+    compact cloud layout carries columns on the LAST axis of its
+    (L, G_pad, B) mask."""
+    from ..types import McicaCloudsCompact
     from .wire import WireBatch
     bs = batch_sharding(mesh)
     last = NamedSharding(mesh, P(None, None, COLUMNS))
-    if isinstance(tree, McicaCloudsBlocked):
-        return McicaCloudsBlocked(last, last, last, last, bs, bs)
     if isinstance(tree, McicaCloudsCompact):
         return McicaCloudsCompact(last, bs, bs, bs, bs)
     if isinstance(tree, WireBatch):
@@ -93,8 +91,8 @@ def global_batch_from_host_shards(mesh: Mesh, per_host_arrays):
 
     Each host passes the column shard it loaded; the result is a global
     array sharded over the ``columns`` axis (host boundary handled by the
-    JAX runtime).  Layout aware like shard_batch: blocked/compact cloud
-    arrays concatenate hosts along their LAST (column) axis, batch-first
+    JAX runtime).  Layout aware like shard_batch: compact cloud masks
+    concatenate hosts along their LAST (column) axis, batch-first
     leaves along axis 0.  Single-host fallback: equivalent to
     shard_batch.
     """

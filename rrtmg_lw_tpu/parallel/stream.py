@@ -29,8 +29,8 @@ def prefetch(batches: Iterable, mesh, depth: int = 2,
              sharding=None) -> Iterator:
     """Yield device-resident batches, keeping ``depth`` transfers in
     flight ahead of the consumer on a background thread.  Shardings
-    are layout-aware per sub-tree (blocked/compact cloud arrays carry
-    columns on their last axis — see mesh.shardings_for)."""
+    are layout-aware per sub-tree (compact cloud masks carry columns
+    on their last axis — see mesh.shardings_for)."""
     if sharding is not None:
         put = lambda tree: jax.tree_util.tree_map(
             lambda x: jax.device_put(x, sharding), tree)

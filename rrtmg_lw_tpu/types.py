@@ -75,36 +75,16 @@ class McicaClouds(NamedTuple):
 NGPT_PAD = 144             # NGPT padded to a multiple of 8
 
 
-class McicaCloudsBlocked(NamedTuple):
-    """McicaClouds with the per-g-point arrays in a g-major, column-last
-    (L, NGPT_PAD, B) layout (g zero-padded 140->144), the layout of a
-    host pipeline that stores sub-columns g-major like the reference's
-    cldfmcl(ngptlw, ncol, nlay) (rrtmg_lw_rad.f90:117).  The model
-    relayouts it to (B, L, NGPT) with ``to_batch``."""
-    cldfmc: jnp.ndarray        # (L, NGPT_PAD, B) 0/1 cloud fraction
-    ciwpmc: jnp.ndarray        # (L, NGPT_PAD, B) in-cloud ice water path
-    clwpmc: jnp.ndarray        # (L, NGPT_PAD, B)
-    taucmc: jnp.ndarray        # (L, NGPT_PAD, B) in-cloud optical depth
-    reicmc: jnp.ndarray        # (B, L)
-    relqmc: jnp.ndarray        # (B, L)
-
-    def to_batch(self) -> "McicaClouds":
-        """Relayout back to (B, L, NGPT) for the non-blocked paths."""
-        t = lambda x: jnp.transpose(x[:, :NGPT, :], (2, 0, 1))
-        return McicaClouds(t(self.cldfmc), t(self.ciwpmc),
-                           t(self.clwpmc), t(self.taucmc),
-                           self.reicmc, self.relqmc)
-
-
 class McicaCloudsCompact(NamedTuple):
     """Generator-form McICA clouds: the binary sub-column mask at g
-    resolution plus per-layer water paths.  The stochastic generator
-    constructs ciwpmcl/clwpmcl exactly as ``per-layer value x binary
-    mask`` (mcica_subcol_gen_lw.f90:655-668), so carrying the factors
-    instead of the products is numerically identical at ~1/4 the
-    bytes of McicaCloudsBlocked (it is the streaming wire's cloud
-    form, parallel/wire.py).  Valid for the inflag=2 parameterized-optics
-    path (ice/liquid water paths; per-g taucmc is identically zero
+    resolution, g-major and column-last like the reference's
+    cldfmcl(ngptlw, ncol, nlay), plus per-layer water paths.  The
+    stochastic generator constructs ciwpmcl/clwpmcl exactly as
+    ``per-layer value x binary mask`` (mcica_subcol_gen_lw.f90:655-668),
+    so carrying the factors instead of the products is numerically
+    identical at ~1/4 the bytes of the per-g McicaClouds (it is the
+    streaming wire's cloud form, parallel/wire.py).  Valid for the
+    inflag=2 parameterized-optics path (ice/liquid water paths; per-g taucmc is identically zero
     there — rrtmg_lw_cldprmc.f90:128-142)."""
     cldfmc: jnp.ndarray        # (L, NGPT_PAD, B) 0/1 mask (f32 or int8)
     ciwp: jnp.ndarray          # (B, L) in-cloud ice water path

@@ -19,7 +19,7 @@ import numpy as np
 import jax.numpy as jnp
 
 from ..types import (Atmosphere, BandClouds, McicaClouds,
-                     McicaCloudsBlocked)
+                     McicaCloudsCompact)
 
 
 def make_atmosphere(ncol=4, nlay=51, seed=0, dtype=jnp.float64,
@@ -119,10 +119,10 @@ def make_mcica_clouds(ncol=4, nlay=51, seed=2, dtype=jnp.float64,
     """A plausible binary per-g-point McICA cloud state (for tests/bench
     that don't exercise the stochastic generator itself).
 
-    layout="blocked" emits a McicaCloudsBlocked with the per-g arrays
-    in the g-major (L, NGPT_PAD, B) layout; layout="compact" the
-    generator form (McicaCloudsCompact).  ``clear_frac`` leaves that
-    fraction of columns cloud-free (mixed GCM-mode populations)."""
+    layout="compact" emits the generator form (McicaCloudsCompact,
+    mask in the g-major (L, NGPT_PAD, B) layout).  ``clear_frac``
+    leaves that fraction of columns cloud-free (mixed GCM-mode
+    populations)."""
     rng = np.random.default_rng(seed)
     npdt = np.float32 if dtype == jnp.float32 else np.float64
     lo = 3 + rng.integers(0, 3, ncol)
@@ -145,24 +145,17 @@ def make_mcica_clouds(ncol=4, nlay=51, seed=2, dtype=jnp.float64,
     relq = np.full((ncol, nlay), 10.0)
     gp = -(-ngpt // 8) * 8
 
-    def fill_blocked(values, out_dtype=npdt):
-        """(nlay, gp, ncol) array with values[c, j, g] at
-        [rows[c, j], g, cols[c]] — only the ~4 cloudy layers per
-        column are touched, so no (B, L, G) transpose/pad pass over
-        the (mostly zero) batch layout is ever materialized (that
-        np.pad cost ~8 s per array at ncol=16k)."""
-        out = np.zeros((nlay, gp, ncol), out_dtype)
-        for j in range(4):                 # 4 scattered row-writes
-            out[rows[:, j], :ngpt, cols] = values[:, j, :]
-        return out
-
     if layout == "compact":
         # generator form: binary mask + per-layer water paths (the
         # synthetic per-g paths are constant across g inside a layer
-        # by construction, like mcica_subcol_lw's outputs)
-        from ..types import McicaCloudsCompact
-        mask = fill_blocked(m, npdt if mask_dtype is None
-                            else mask_dtype)
+        # by construction, like mcica_subcol_lw's outputs).  Only the
+        # ~4 cloudy layers per column are written, so no (B, L, G)
+        # transpose/pad pass over the mostly zero batch layout is
+        # materialized.
+        mask = np.zeros((nlay, gp, ncol),
+                        npdt if mask_dtype is None else mask_dtype)
+        for j in range(4):                 # 4 scattered row-writes
+            mask[rows[:, j], :ngpt, cols] = m[:, j, :]
         anyc = m.any(axis=2)                        # (ncld, 4)
         ciwp_l = np.zeros((ncol, nlay))
         clwp_l = np.zeros((ncol, nlay))
@@ -171,13 +164,8 @@ def make_mcica_clouds(ncol=4, nlay=51, seed=2, dtype=jnp.float64,
         return McicaCloudsCompact(
             cldfmc=mask, ciwp=arr(ciwp_l), clwp=arr(clwp_l),
             reicmc=arr(reic), relqmc=arr(relq))
-    if layout == "blocked":
-        return McicaCloudsBlocked(
-            cldfmc=fill_blocked(m),
-            ciwpmc=fill_blocked(np.where(m, ci, 0.0)),
-            clwpmc=fill_blocked(np.where(m, cw, 0.0)),
-            taucmc=np.zeros((nlay, gp, ncol), npdt),
-            reicmc=arr(reic), relqmc=arr(relq))
+    if layout != "batch":
+        raise ValueError(f"layout={layout!r}")
     cldf = np.zeros((ncol, nlay, ngpt), npdt)
     ciwp = np.zeros((ncol, nlay, ngpt), npdt)
     clwp = np.zeros((ncol, nlay, ngpt), npdt)

@@ -8,6 +8,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 import chip_smoke as cs
@@ -37,18 +38,51 @@ def test_fails_without_the_repo(tmp_path):
 
 
 def test_phases_tiny_on_cpu():
-    steps = cs.phase_forward(B=24, nlays=(8,), n_ref=8, n_oracle=1,
-                             oracle_nlay=8, interpret=True)
-    assert set(steps) == {(8, "clear"), (8, "mcica")}
+    cs.phase_forward(B=24, nlays=(8,), n_ref=8, n_oracle=1,
+                     oracle_nlay=8, interpret=True)
     rows = cs.phase_rt_kernel(B=24, nlays=(8,), interpret=True,
                               windows=1, n_steps=1)
-    assert {(r["nlay"], r["sky"]) for r in rows} == set(steps)
+    assert {(r["nlay"], r["sky"]) for r in rows} == {(8, "clear"),
+                                                      (8, "mcica")}
+
+
+def test_grad_phase_tiny_on_cpu():
+    cs.phase_grad(B=16, L=8, n_grad=8, interpret=True)
 
 
 def test_gates_raise():
     with pytest.raises(cs.CheckFailed):
         cs.gate("x", 2e-3, cs.FLUX_GATE)
     cs.gate("x", 0.0, cs.FLUX_GATE)
+
+
+def test_hr_gate_holds_raw_error_to_the_contract():
+    """An error inside the f32 storage allowance still fails once it
+    passes the reference's 0.1 K/day."""
+    from rrtmg_lw_tpu.types import Fluxes
+    B, L = 2, 3
+    flux = np.full((B, L + 1), 1e4)
+    zero = np.zeros((B, L))
+    ref = Fluxes(uflx=flux, dflx=flux, hr=zero, uflxc=flux, dflxc=flux,
+                 hrc=zero)
+    # layers so thin that the storage allowance is far above 0.1 K/day
+    plev = np.tile(1.0 - 1e-7 * np.arange(L + 1), (B, 1))
+    cs.gate_hr("hr", np.full((B, L), 0.05), ref, plev, 8.4, "hr")
+    with pytest.raises(cs.CheckFailed):
+        cs.gate_hr("hr", np.full((B, L), 0.2), ref, plev, 8.4, "hr")
+
+
+def test_grad_gates():
+    want = {"a": np.ones(100), "z": np.zeros(2)}
+    near = {"a": np.full(100, 1.0 + 1e-3), "z": np.zeros(2)}
+    cs.gate_grads("g", near, want)
+    with pytest.raises(cs.CheckFailed):     # a zero leaf must stay 0
+        cs.gate_grads("g", {"a": want["a"], "z": np.ones(2)}, want)
+    # one element 5% off: inside the L2 gate, outside the max gate
+    off = {"a": np.r_[1.05, np.ones(99)], "z": np.zeros(2)}
+    cs.gate_grads("g", off, want, max_gate=False)
+    with pytest.raises(cs.CheckFailed):
+        cs.gate_grads("g", off, want)
 
 
 def test_bench_refuses_cpu():

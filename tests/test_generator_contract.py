@@ -28,7 +28,7 @@ def _all_leaves_numpy(tree):
 def test_generators_return_host_numpy():
     assert _all_leaves_numpy(make_atmosphere(ncol=4, nlay=12))
     assert _all_leaves_numpy(make_band_clouds(ncol=4, nlay=12))
-    for layout in ("batch", "blocked", "compact"):
+    for layout in ("batch", "compact"):
         assert _all_leaves_numpy(
             make_mcica_clouds(ncol=8, nlay=12, layout=layout)), layout
 
